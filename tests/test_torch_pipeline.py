@@ -1,0 +1,164 @@
+"""Pipeline parity: the port's VisionPipeline vs the JAX conv pipeline.
+
+The scenario of tests/test_pipeline_e2e.py (reference capture, stable
+frames, e2->e4, a hand-occlusion frame, forced full rescans) runs through
+both packages on the same 1280x720 frames; every frame's StepOutputs must
+agree: bool/i32 fields exactly, f32 fields within the tolerance below.
+"""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from chessboard_vision_tpu import geometry as geo
+from chessboard_vision_tpu.models.pipeline import VisionPipeline as JaxPipeline
+from chessboard_vision_tpu_torch.models import pipeline as tp
+from chessboard_vision_tpu_torch.models.pipeline import VisionPipeline as TorchPipeline
+
+from fixtures import DEFAULT_CORNERS, initial_occupancy, make_board_frame
+
+# One intra-op thread: the suite runs in parallel worker processes, and
+# each torch process would otherwise spread over every core.
+torch.set_num_threads(1)
+
+# f32 outputs: confidence (symmetry) and profile_extent sum 4 ring values
+# in another order than XLA, and XLA:CPU's sqrt/divide may differ from a
+# correctly rounded one by an ulp (change_z_peak): a few ulps at most.
+F32_RTOL, F32_ATOL = 1e-5, 1e-5
+EXACT = ("occupancy", "raw_occupancy", "visual_changes", "method", "radius",
+         "change_intensity")
+
+
+def assert_outputs_match(t_out, j_out, where=""):
+    t_out = tp.outputs_to_numpy(t_out)
+    for f in tp.StepOutputs._fields:
+        t, j = getattr(t_out, f), np.asarray(getattr(j_out, f))
+        assert t.dtype == j.dtype, f"{where} {f}: {t.dtype} vs {j.dtype}"
+        if f in EXACT:
+            np.testing.assert_array_equal(t, j, err_msg=f"{where} {f}")
+        else:
+            np.testing.assert_allclose(t, j, rtol=F32_RTOL, atol=F32_ATOL, err_msg=f"{where} {f}")
+
+
+def assert_states_match(t_state, j_state):
+    t_state = tp.state_to_numpy(t_state)
+    for part in ("piece", "change"):
+        tn, jn = getattr(t_state, part), getattr(j_state, part)
+        for f in tn._fields:
+            t, j = getattr(tn, f), np.asarray(getattr(jn, f))
+            assert t.dtype == j.dtype and t.shape == j.shape, f"{part}.{f}"
+            if t.dtype == np.float32:
+                np.testing.assert_allclose(t, j, rtol=F32_RTOL, atol=F32_ATOL, err_msg=f)
+            else:
+                np.testing.assert_array_equal(t, j, err_msg=f"{part}.{f}")
+
+
+@pytest.fixture(scope="module")
+def clip():
+    rng = np.random.default_rng(1234)
+    occ0 = initial_occupancy()
+    occ1 = occ0.copy()
+    occ1[4, 1] = False
+    occ1[4, 3] = True  # e2 -> e4
+    frame0 = make_board_frame(occ0, rng)
+    frames = [make_board_frame(occ0, rng) for _ in range(3)]
+    frames += [make_board_frame(occ1, rng) for _ in range(6)]
+    hand = make_board_frame(occ1, rng)
+    hand[250:520, 450:800] = (120, 110, 100)
+    frames.append(hand)
+    frames += [make_board_frame(occ1, rng) for _ in range(6)]
+    return frame0, frames
+
+
+@pytest.fixture(scope="module")
+def pipes():
+    g = geo.BoardGeometry.from_calibration(DEFAULT_CORNERS)
+    return JaxPipeline(g, hough_backend="conv", donate_state=False), TorchPipeline(g)
+
+
+ALL_SQUARES = {(f, r) for f in range(8) for r in range(8)}
+
+
+def test_e2e_sequence_outputs_match_jax_every_frame(clip, pipes):
+    frame0, frames = clip
+    jp, tpipe = pipes
+    js = jp.capture_reference(jp.init_state(), frame0)
+    ts = tpipe.capture_reference(tpipe.init_state(), frame0)
+    assert_states_match(ts, js)
+    for i, fr in enumerate(frames):
+        s2c = ALL_SQUARES if i > 10 else None
+        js, jo = jp.step(js, fr, squares_to_check=s2c)
+        ts, to = tpipe.step(ts, fr, squares_to_check=s2c)
+        assert_outputs_match(to, jo, where=f"frame {i}")
+    assert_states_match(ts, js)
+    truth = initial_occupancy()
+    truth[4, 1], truth[4, 3] = False, True
+    assert tp.occupancy_to_set(to.occupancy) == {
+        (f, r) for f in range(8) for r in range(8) if truth[f, r]
+    }
+
+
+def test_state_from_numpy_mid_sequence(clip, pipes):
+    """Both packages start from the same mid-sequence JAX state (converted
+    with state_from_numpy) and step once, with a forced re-reference and a
+    smart-scan subset; the round trip through state_to_numpy is lossless."""
+    frame0, frames = clip
+    jp, tpipe = pipes
+    js = jp.capture_reference(jp.init_state(), frame0)
+    for fr in frames[:5]:
+        js, _ = jp.step(js, fr)
+    host = jax.tree.map(np.asarray, js)
+    ts = tp.state_from_numpy(host)
+    for a, b in zip(jax.tree.leaves(tp.state_to_numpy(ts)), jax.tree.leaves(host)):
+        np.testing.assert_array_equal(a, b)
+    s2c = {(4, 1), (4, 3), (0, 0)}
+    js, jo = jp.step(js, frames[5], squares_to_check=s2c, refresh_refs=True)
+    ts, to = tpipe.step(ts, frames[5], squares_to_check=s2c, refresh_refs=True)
+    assert_outputs_match(to, jo)
+    assert_states_match(ts, js)
+
+
+def test_step_many_equals_sequential_steps(clip, pipes):
+    """step_many (one upload, a device loop, stacked outputs) equals K
+    sequential step() calls exactly, outputs and state, with a forced
+    re-reference on frame 0 and a smart-scan subset."""
+    frame0, frames = clip
+    _, tpipe = pipes
+    chunk = frames[7:13]
+    s2c = {(4, 1), (4, 3)}
+    seq = tpipe.capture_reference(tpipe.init_state(), frame0)
+    many = tp.state_from_numpy(tp.state_to_numpy(seq))
+    outs = []
+    for i, fr in enumerate(chunk):
+        seq, o = tpipe.step(seq, fr, squares_to_check=s2c, refresh_refs=i == 0)
+        outs.append(tp.outputs_to_numpy(o))
+    many, mo = tpipe.step_many(many, np.stack(chunk), squares_to_check=s2c, refresh_first=True)
+    mo = tp.outputs_to_numpy(mo)
+    for f in tp.StepOutputs._fields:
+        np.testing.assert_array_equal(
+            getattr(mo, f), np.stack([getattr(o, f) for o in outs]), err_msg=f
+        )
+    for a, b in zip(tp.state_to_numpy(seq), tp.state_to_numpy(many)):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+
+
+def test_outputs_to_numpy_dtypes_and_unsupported_options(pipes):
+    _, tpipe = pipes
+    out = tp.StepOutputs(*(
+        torch.zeros(64, dtype=dt) for dt in (
+            torch.bool, torch.bool, torch.bool, torch.int32, torch.float32, torch.int32,
+            torch.int32, torch.float32, torch.float32, torch.float32, torch.float32,
+            torch.float32,
+        )
+    ))
+    out = out._replace(confidence=torch.full((64,), -1.5), radius=torch.arange(64, dtype=torch.int32))
+    host = tp.outputs_to_numpy(out)
+    assert host.confidence.dtype == np.float32 and (host.confidence == -1.5).all()
+    np.testing.assert_array_equal(host.radius, np.arange(64))
+    g = tpipe.geometry
+    with pytest.raises(NotImplementedError, match="A11"):
+        TorchPipeline(g, with_enhancer=True)
+    with pytest.raises(NotImplementedError, match="A12"):
+        TorchPipeline(g, hough_backend="exact")

@@ -1,0 +1,79 @@
+"""Session parity: the port's GameSession vs the JAX GameSession.
+
+Both sessions see the same rendered 1280x720 frames of one scripted move
+and must commit the same move on the same frame and reach the same FEN.
+The JAX session's pipeline is forced to the conv Hough backend (the port's
+only one) by patching the name its module builds pipelines from, in this
+test only.
+"""
+
+import functools
+
+import numpy as np
+import torch
+
+from chessboard_vision_tpu.models.pipeline import VisionPipeline as JaxPipeline
+from chessboard_vision_tpu.rules import chess
+from chessboard_vision_tpu.session import game_session as jax_session_mod
+from chessboard_vision_tpu_torch.session.game_session import GameSession as TorchSession
+from chessboard_vision_tpu_torch.tools.demo_pipeline import occupancy_of
+
+from fixtures import DEFAULT_CORNERS, make_board_frame
+
+# One intra-op thread: the suite runs in parallel worker processes, and
+# each torch process would otherwise spread over every core.
+torch.set_num_threads(1)
+
+CONFIG = {
+    "corners": DEFAULT_CORNERS.tolist(),
+    "player_color": "white",
+    "orientation_flipped": False,
+    "grid_lines_x": None,
+    "grid_lines_y": None,
+}
+
+
+def _drive(session, frames):
+    """Feed frames until a move commits; (move uci, frame index) or None."""
+    for i, fr in enumerate(frames):
+        move = session.on_frame(fr)
+        if move:
+            return move.uci(), i
+    return None
+
+
+def test_port_session_commits_same_move_and_fen_as_jax(monkeypatch):
+    monkeypatch.setattr(
+        jax_session_mod, "VisionPipeline",
+        functools.partial(JaxPipeline, hough_backend="conv"),
+    )
+    rng = np.random.default_rng(11)
+    script = chess.Board()
+    frame0 = make_board_frame(occupancy_of(script), rng)
+    script.push_uci("e2e4")
+    frames = [make_board_frame(occupancy_of(script), rng) for _ in range(26)]
+
+    jsess = jax_session_mod.GameSession(headless=True)
+    tsess = TorchSession()
+    assert jsess.on_calibration_requested(None, config=dict(CONFIG))
+    assert tsess.on_calibration_requested(config=dict(CONFIG))
+    for s in (jsess, tsess):
+        s.MOVE_COOLDOWN = 0.0
+        s.capture_reference_frame(frame0)
+    assert jsess.pipeline.hough_backend == "conv"
+
+    got_j, got_t = _drive(jsess, frames), _drive(tsess, frames)
+    assert got_t is not None and got_t == got_j
+    assert got_t[0] == "e2e4"
+    assert tsess.game.get_fen() == jsess.game.get_fen() == script.fen()
+    assert tsess.to_pgn() == jsess.to_pgn()
+
+
+def test_demo_pipeline_plays_a_scripted_move(capsys):
+    """The port's headless demo (numpy-rendered frames, CPU device)
+    commits the scripted move and ends with the script's FEN."""
+    from chessboard_vision_tpu_torch.tools import demo_pipeline
+
+    assert demo_pipeline.main(["--moves", "d2d4", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "detected + committed: d2d4" in out and out.rstrip().endswith("OK")
