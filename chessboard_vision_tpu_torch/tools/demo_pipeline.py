@@ -32,6 +32,26 @@ def occupancy_of(board) -> np.ndarray:
     return occ
 
 
+def calibrated_session(corners, display_size=None, device="cpu") -> GameSession:
+    """A GameSession on ``device`` calibrated from four board corners (TL,
+    TR, BL, BR) of a ``display_size`` (width, height) frame, or of the
+    default 1280x720 when None, with the move cooldown off for replay."""
+    session = GameSession(device=device)
+    session.MOVE_COOLDOWN = 0.0
+    config = {
+        "corners": np.asarray(corners).tolist(),
+        "player_color": "white",
+        "orientation_flipped": False,
+        "grid_lines_x": None,
+        "grid_lines_y": None,
+    }
+    if display_size is not None:
+        config["display_size"] = list(display_size)
+    if not session.on_calibration_requested(config=config):
+        raise RuntimeError("calibration failed")
+    return session
+
+
 def play(session: GameSession, camera: SynthCamera, moves, rng,
          frames_per_position: int = 26, log=print):
     """Drive ``session`` through the scripted UCI ``moves``. Returns
@@ -71,17 +91,7 @@ def main(argv=None):
         raise SystemExit(f"--device {args.device}: no CUDA device is available")
 
     rng = np.random.default_rng(args.seed)
-    session = GameSession(device=args.device)
-    session.MOVE_COOLDOWN = 0.0
-    config = {
-        "corners": CORNERS,
-        "player_color": "white",
-        "orientation_flipped": False,
-        "grid_lines_x": None,
-        "grid_lines_y": None,
-    }
-    if not session.on_calibration_requested(config=config):
-        raise SystemExit("calibration failed")
+    session = calibrated_session(CORNERS, device=args.device)
     camera = SynthCamera(CORNERS)
 
     moves = args.moves.split()

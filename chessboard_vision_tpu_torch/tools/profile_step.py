@@ -1,0 +1,92 @@
+"""Where one pipeline step's time goes on a CUDA card.
+
+Drives ``VisionPipeline.step`` on rendered frames of the benchmark's board
+layout (full smart-scan set, chained state) and prints, per step:
+
+- the host time to pack a frame with its flags and start its upload, and
+  the host time to enqueue the step's device work (no upload);
+- under ``torch.profiler``: the wall time, the device busy time and its
+  share of the wall, the device kernels and copies, and the top kernels
+  by device time.
+
+The card's name and power limit (nvidia-smi) head the output.
+
+Run: python -m chessboard_vision_tpu_torch.tools.profile_step [--steps 20]
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+from chessboard_vision_tpu.geometry import BoardGeometry
+from chessboard_vision_tpu_torch.models.pipeline import VisionPipeline
+from chessboard_vision_tpu_torch.tools.synth import SynthCamera, bench_corners, initial_occupancy
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--height", type=int, default=1080)
+    ap.add_argument("--width", type=int, default=1920)
+    ap.add_argument("--steps", type=int, default=20, help="steps per measurement")
+    ap.add_argument("--top", type=int, default=12, help="kernels to list")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_step needs a CUDA device")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0])
+    h, w, n = args.height, args.width, args.steps
+    corners = bench_corners(h, w)
+    g = BoardGeometry.from_calibration(corners, display_size=(w, h))
+    cam = SynthCamera(corners, frame_size=(h, w), board_px=g.board_size)
+    rng = np.random.default_rng(0)
+    frames = [cam.render(initial_occupancy(), rng) for _ in range(4)]
+    pipe = VisionPipeline(g, device="cuda")
+    state = pipe.capture_reference(pipe.init_state(), frames[0])
+    s2c = {(f, r) for f in range(8) for r in range(8)}
+    for i in range(10):  # warm up the allocator and the kernel build
+        state, _ = pipe.step(state, frames[i % 4], squares_to_check=s2c)
+    torch.cuda.synchronize()
+
+    mask = np.ones(64, bool)
+    t0 = time.perf_counter()
+    for i in range(n):
+        frame, s2c_mask, flags = pipe._upload(frames[i % 4], mask, (True, False))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(n):
+        state, _ = pipe._step_impl(state, frame, s2c_mask, flags[0], flags[1])
+    t2 = time.perf_counter()
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    print(f"{w}x{h}: host pack+upload {1e3 * (t1 - t0) / n:.3f} ms, step enqueue "
+          f"{1e3 * (t2 - t1) / n:.3f} ms, enqueue+drain {1e3 * (t3 - t1) / n:.3f} ms per step")
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(n):
+            state, _ = pipe.step(state, frames[i % 4], squares_to_check=s2c)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / n
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3 / n
+    ops = sum(e.count for e in dev) / n
+    print(f"profiled {n} steps: wall {wall_ms:.3f} ms/step, device busy {busy_ms:.3f} "
+          f"ms/step ({100 * busy_ms / wall_ms:.1f}% of wall), {ops:.0f} device "
+          "kernels+copies/step")
+    for e in sorted(dev, key=lambda e: -e.self_device_time_total)[: args.top]:
+        print(f"  {e.self_device_time_total / 1e3 / n:8.3f} ms/step  {e.count / n:6.1f}/step  "
+              f"{e.key[:90]}")
+
+
+if __name__ == "__main__":
+    main()

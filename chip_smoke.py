@@ -33,15 +33,12 @@ import time
 import numpy as np
 import torch
 
-from chessboard_vision_tpu import geometry as geo
-from chessboard_vision_tpu.rules import chess
 from chessboard_vision_tpu_torch.kernels import build
 from chessboard_vision_tpu_torch.kernels import score_matmul as sm
 from chessboard_vision_tpu_torch.models import pipeline as tp
 from chessboard_vision_tpu_torch.ops.hough_conv import edge_planes
 from chessboard_vision_tpu_torch.ops.layout import to_planar
-from chessboard_vision_tpu_torch.session.game_session import GameSession
-from chessboard_vision_tpu_torch.tools.demo_pipeline import play
+from chessboard_vision_tpu_torch.tools.demo_pipeline import calibrated_session, play
 from chessboard_vision_tpu_torch.tools.synth import SynthCamera, bench_corners, initial_occupancy
 
 HEIGHT, WIDTH = 1080, 1920
@@ -148,7 +145,8 @@ def _compare_outputs(a, b, where):
                   f"{where} {f} not within tolerance")
 
 
-def pipeline_phase(pipe, camera, rng, smi):
+def pipeline_phase(session, camera, rng, smi):
+    pipe = session.pipeline
     occ0 = initial_occupancy()
     occ1 = occ0.copy()
     occ1[4, 1], occ1[4, 3] = False, True  # e2 -> e4
@@ -168,11 +166,8 @@ def pipeline_phase(pipe, camera, rng, smi):
     # The session's smart-scan set at the start position (occupied squares
     # and legal destinations): a moved piece on a same-shade square can sit
     # under the visual-delta gate, and the session forces these squares.
-    board = chess.Board()
-    s2c = set(truth) | {
-        (chess.square_file(m.to_square), chess.square_rank(m.to_square))
-        for m in board.legal_moves
-    }
+    s2c = session._smart_scan_set()
+    check(set(truth) <= s2c, "smart-scan set misses an occupied square")
     seq_state = state
     seq_outs = []
     for fr in frames:
@@ -211,17 +206,7 @@ def pipeline_phase(pipe, camera, rng, smi):
 
 
 def session_phase(corners, camera, rng):
-    session = GameSession(device=DEVICE)
-    session.MOVE_COOLDOWN = 0.0
-    config = {
-        "corners": corners.tolist(),
-        "display_size": [WIDTH, HEIGHT],
-        "player_color": "white",
-        "orientation_flipped": False,
-        "grid_lines_x": None,
-        "grid_lines_y": None,
-    }
-    check(session.on_calibration_requested(config=config), "calibration failed")
+    session = calibrated_session(corners, (WIDTH, HEIGHT), DEVICE)
     moves = ["e2e4", "e7e5"]
     committed, script, n_frames = play(
         session, camera, moves, rng, log=lambda m: phase("session", m)
@@ -238,15 +223,17 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in full f32
     rng = np.random.default_rng(0)
     corners = bench_corners(HEIGHT, WIDTH)
-    g = geo.BoardGeometry.from_calibration(corners, display_size=(WIDTH, HEIGHT))
+    # A calibrated session on the card; its pipeline drives phases 3 and 4.
+    session = calibrated_session(corners, (WIDTH, HEIGHT), DEVICE)
+    pipe = session.pipeline
+    g = pipe.geometry
     camera = SynthCamera(corners, frame_size=(HEIGHT, WIDTH), board_px=g.board_size)
-    pipe = tp.VisionPipeline(g, device=DEVICE)
     phase("pipeline", f"geometry: board {g.board_size} px, squares "
           f"{pipe.H}x{pipe.W} pad {g.squares.pad}, basis {tuple(pipe.conv_plan.basis.shape)}")
     max_err, kernel_ms, plain_ms = kernel_phase(pipe, camera.render(initial_occupancy(), rng), smi)
 
     sm.score_matmul.launches = 0  # count only the main path from here
-    step_ms, many_ms = pipeline_phase(pipe, camera, rng, smi)
+    step_ms, many_ms = pipeline_phase(session, camera, rng, smi)
     session_phase(corners, camera, rng)
     launches = sm.score_matmul.launches
     check(launches > 0, "the main path never launched score_matmul")

@@ -69,3 +69,29 @@ def test_port_sources_never_import_jax_or_cv2():
     files = list(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     offenders = [str(p) for p in files if pattern.search(p.read_text())]
     assert not offenders
+    # The smoke script reaches the JAX package's host modules only through
+    # the port's own entry points.
+    reference = re.compile(r"^\s*(import|from) chessboard_vision_tpu\b", re.M)
+    assert not reference.search((REPO / "chip_smoke.py").read_text())
+
+
+# The JAX package's modules that import no jax, and the only ones the port uses.
+_JAX_FREE_HOST_MODULES = (
+    "geometry", "rules", "rules.chesslib", "rules.pgn", "utils.config", "utils.logging",
+)
+
+
+def test_port_imports_only_the_jax_free_host_modules_of_the_reference():
+    pattern = re.compile(
+        r"^\s*(?:from chessboard_vision_tpu\b((?:\.\w+)*) import (\w+)"
+        r"|import chessboard_vision_tpu\b((?:\.\w+)*))",
+        re.M,
+    )
+    used = set()
+    for path in PORT.rglob("*.py"):
+        for m in pattern.finditer(path.read_text()):
+            sub = (m.group(1) or m.group(3) or "").lstrip(".")
+            # "from chessboard_vision_tpu import geometry" names the module.
+            used.add(sub or m.group(2))
+    assert used, "the port should use the reference's geometry and rules"
+    assert used <= set(_JAX_FREE_HOST_MODULES), sorted(used - set(_JAX_FREE_HOST_MODULES))
