@@ -15,7 +15,8 @@ import os
 import shutil
 import subprocess
 import time
-from typing import Dict, NamedTuple
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, NamedTuple, Sequence
 
 KERNEL_DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(KERNEL_DIR, "_build")
@@ -65,6 +66,13 @@ def build(name: str) -> BuildResult:
         )
     os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
     return BuildResult(lib, seconds, proc.stdout + proc.stderr)
+
+
+def build_all(names: Sequence[str]) -> Dict[str, BuildResult]:
+    """``build`` every source at once: one nvcc process each, all started
+    together, so the slowest source sets the wall time."""
+    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
+        return dict(zip(names, pool.map(build, names)))
 
 
 _loaded: Dict[str, ctypes.CDLL] = {}

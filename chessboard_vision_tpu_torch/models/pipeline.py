@@ -1,10 +1,13 @@
-"""Frame -> per-square occupancy pipeline (plain path, conv Hough backend).
+"""Frame -> per-square occupancy pipeline (conv Hough backend).
 
 Counterpart of chessboard_vision_tpu.models.pipeline. One step turns a
 planar BGR camera frame into 64 per-square ``StepOutputs``: gray ->
 bilinear square resample -> 5x5 Gaussian -> piece cascade with delta
-cache and 5-frame smoothing -> EMA change model. The temporal state is an
-explicit ``PipelineState``: ``step(state, frame) -> (state, outputs)``.
+cache and 5-frame smoothing -> EMA change model. With ``with_enhancer``
+the frame is first warped to a color board, enhanced (models/enhancer.py:
+CLAHE and bilateral kernels) and grayscaled, and the squares are taken
+from the board. The temporal state is an explicit ``PipelineState``:
+``step(state, frame) -> (state, outputs)``.
 
 Host <-> device traffic: ``step`` and ``step_many`` make one H2D copy each
 (the frame or frame chunk, packed with the per-frame control flags) and
@@ -19,8 +22,10 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from chessboard_vision_tpu.geometry import BoardGeometry
+from chessboard_vision_tpu_torch.device import resolve_device
+from chessboard_vision_tpu_torch.geometry import BoardGeometry
 from chessboard_vision_tpu_torch.models import piece_detector as pd_model
+from chessboard_vision_tpu_torch.models.enhancer import enhance_planar
 from chessboard_vision_tpu_torch.ops import change as change_ops
 from chessboard_vision_tpu_torch.ops import hough_conv as hough_conv_ops
 from chessboard_vision_tpu_torch.ops import matmul_resample as mr
@@ -104,9 +109,10 @@ def state_to_numpy(state: PipelineState) -> PipelineState:
 class VisionPipeline:
     """Frame -> occupancy pipeline for one calibration geometry, on one device.
 
-    Every geometry-derived constant (resample plan, masks, Hough basis) is
+    Every geometry-derived constant (resample plans, masks, Hough basis) is
     built on the host and moved to ``device`` once, here. Recalibrating
-    builds a new pipeline.
+    builds a new pipeline. ``device`` is the card unless the caller asks
+    for the CPU; without a card, "cuda" raises.
     """
 
     def __init__(
@@ -116,14 +122,11 @@ class VisionPipeline:
         change_settings: Optional[dict] = None,
         hough_backend: str = "auto",
         with_enhancer: bool = False,
+        enhancer_profile: Optional[dict] = None,
         detector_overrides: Optional[dict] = None,
-        device="cpu",
+        device="cuda",
     ):
-        if with_enhancer:
-            raise NotImplementedError(
-                "with_enhancer=True: the enhanced path is not ported yet "
-                "(ROADMAP.md Queue A, A11; kernels B2-B4)"
-            )
+        self.device = resolve_device(device, "VisionPipeline")
         if hough_backend == "auto":
             hough_backend = "conv"
         if hough_backend != "conv":
@@ -132,7 +135,6 @@ class VisionPipeline:
                 "(the exact backend is ROADMAP.md Queue A, A12)"
             )
         self.hough_backend = hough_backend
-        self.device = torch.device(device)
         self.geometry = geometry
         self.dg = warp_ops.DeviceGeometry.from_host(geometry, device=self.device)
         s = geometry.squares
@@ -158,6 +160,28 @@ class VisionPipeline:
         self._mm_plan, self._mm_dims = mr.build_plan(
             qx, qy, geometry.src_h, geometry.src_w, device=self.device
         )
+
+        # The enhanced path needs a COLOR board: the tile plan warps the
+        # frame to 64 overlapping board tiles (the JAX package's plan, so
+        # each tile's samples round as there), one gather assembles the
+        # board, and the padded squares are gathered from the enhanced gray
+        # board at the square maps' integer coordinates. (The JAX package
+        # resamples with an integer-coordinate plan over the edge-padded
+        # board, which reproduces exactly this gather.)
+        self.with_enhancer = with_enhancer
+        self.enhancer_profile = dict(enhancer_profile) if enhancer_profile else {}
+        if with_enhancer:
+            B = geometry.board_size
+            tqx, tqy, starts, tile = geometry.board_tile_query_coords()
+            self._tile_plan, self._tile_dims = mr.build_plan(
+                tqx, tqy, geometry.src_h, geometry.src_w, device=self.device
+            )
+            self._tile_index = torch.as_tensor(
+                mr.board_tile_index(starts, tile, B), device=self.device
+            )
+            self._ext_index = torch.as_tensor(
+                s.iy.astype(np.int64) * B + s.ix, device=self.device
+            )
 
         cs = change_settings or {}
         self.z_threshold = float(cs.get("z_threshold", 2.5))
@@ -189,14 +213,24 @@ class VisionPipeline:
         """(3, Hf, Wf) planar u8 -> blurred gray squares (64, H, W) u8 for the
         piece cascade and for the change model (the same tensor unless the
         change model has its own blur kernel)."""
-        gray_frame = planar_bgr2gray(frame)
-        gray_padded = mr.resample_gray_u8(gray_frame, self._mm_plan, self._mm_dims)
+        if self.with_enhancer:
+            board = mr.warp_board_color(frame, self._tile_plan, self._tile_dims, self._tile_index)
+            gray_padded = self._enhanced_board_squares(board)
+        else:
+            gray_frame = planar_bgr2gray(frame)
+            gray_padded = mr.resample_gray_u8(gray_frame, self._mm_plan, self._mm_dims)
         gray = gaussian_blur_valid(gray_padded, 5, pad=self._pad)
         if self.change_blur != 5:
             gray_cd = gaussian_blur_valid(gray_padded, self.change_blur, pad=self._pad)
         else:
             gray_cd = gray
         return gray, gray_cd
+
+    def _enhanced_board_squares(self, board: torch.Tensor) -> torch.Tensor:
+        """Warped color board (3, B, B) u8 -> enhanced padded gray squares
+        (64, H+2p, W+2p) u8: enhance -> grayscale -> square extraction."""
+        board = enhance_planar(board, self.enhancer_profile)
+        return planar_bgr2gray(board).reshape(-1)[self._ext_index]
 
     def _step_impl(self, state, frame, s2c_mask, s2c_given, refresh_refs):
         gray, gray_cd = self.preprocess(frame)

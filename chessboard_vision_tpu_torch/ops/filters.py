@@ -1,9 +1,11 @@
-"""Gaussian blur and Sobel with OpenCV's u8 integer arithmetic.
+"""Spatial filters with OpenCV's u8 arithmetic.
 
-The Gaussian is OpenCV's 8-bit fixed-point separable scheme (taps quantized
-to 1/256, one combined rounding shift of 16 bits); Sobel-3 works in int32.
-Borders are index-based (clamped or reflected indices), which works for
-integer tensors on every device.
+Counterpart of chessboard_vision_tpu.ops.filters. The Gaussian is OpenCV's
+8-bit fixed-point separable scheme (taps quantized to 1/256, one combined
+rounding shift of 16 bits); Sobel-3 and filter2D with an integer kernel
+work in int32; min-max normalize in f32. Borders are index-based (clamped
+or reflected indices), which works for integer tensors on every device;
+BORDER_REFLECT_101 is OpenCV's default.
 """
 
 from __future__ import annotations
@@ -39,19 +41,43 @@ def gaussian_kernel_u8(ksize: int, sigma: float = 0.0) -> np.ndarray:
     return np.round(gaussian_kernel(ksize, sigma) * 256).astype(np.int64)
 
 
+def _reflect101_index(n: int, r: int, device) -> torch.Tensor:
+    """Indices [-r, n + r) mapped into [0, n) by reflect-101 (r < n)."""
+    i = torch.arange(-r, n + r, device=device).abs()
+    return torch.where(i >= n, 2 * n - 2 - i, i)
+
+
+def _reflect101_pad(x: torch.Tensor, r: int, axes=(-2, -1)) -> torch.Tensor:
+    """Pad ``r`` reflect-101 rows/cols on each side of each of ``axes``."""
+    for ax in axes:
+        x = x.index_select(ax, _reflect101_index(x.shape[ax], r, x.device))
+    return x
+
+
+def _gauss_u8(x: torch.Tensor, kq) -> torch.Tensor:
+    """Separable fixed-point Gaussian over the last two axes of an int32
+    tensor that already carries its border."""
+    k = len(kq)
+    h = x.shape[-2] - (k - 1)
+    w = x.shape[-1] - (k - 1)
+    tmp = sum(kq[i] * x[..., i : i + w] for i in range(k))
+    out = sum(kq[i] * tmp[..., i : i + h, :] for i in range(k))
+    return ((out + (1 << 15)) >> 16).to(torch.uint8)
+
+
+def gaussian_blur(x: torch.Tensor, ksize: int, sigma: float = 0.0) -> torch.Tensor:
+    """Exact cv2.GaussianBlur for u8 single-channel images (..., H, W)."""
+    kq = [int(v) for v in gaussian_kernel_u8(ksize, sigma)]
+    return _gauss_u8(_reflect101_pad(x.to(torch.int32), ksize // 2), kq)
+
+
 def gaussian_blur_valid(x: torch.Tensor, ksize: int, pad: int = None) -> torch.Tensor:
     """Gaussian blur in 'valid' mode on (..., H, W) u8: the input already
     carries its border (the square resample bakes in a reflect-101 border),
     so the output shrinks by ksize-1. A ``pad`` wider than ksize//2
     center-crops the excess, so the output is always the true crop's size.
     """
-    kq = [int(v) for v in gaussian_kernel_u8(ksize)]
-    h = x.shape[-2] - (ksize - 1)
-    w = x.shape[-1] - (ksize - 1)
-    xi = x.to(torch.int32)
-    tmp = sum(kq[i] * xi[..., i : i + w] for i in range(ksize))
-    out = sum(kq[i] * tmp[..., i : i + h, :] for i in range(ksize))
-    out = ((out + (1 << 15)) >> 16).to(torch.uint8)
+    out = _gauss_u8(x.to(torch.int32), [int(v) for v in gaussian_kernel_u8(ksize)])
     if pad is not None:
         off = pad - ksize // 2
         if off < 0:
@@ -61,14 +87,53 @@ def gaussian_blur_valid(x: torch.Tensor, ksize: int, pad: int = None) -> torch.T
     return out
 
 
+def filter2d_int(x: torch.Tensor, kernel: np.ndarray) -> torch.Tensor:
+    """Exact cv2.filter2D for u8 images with a small integer kernel.
+
+    ``x`` is (..., H, W) or (..., H, W, C) with C <= 4. Correlation,
+    BORDER_REFLECT_101, saturating u8 output."""
+    kernel = np.asarray(kernel)
+    kh, kw = kernel.shape
+    chan = x.dim() >= 3 and x.shape[-1] <= 4
+    ay, ax = (-3, -2) if chan else (-2, -1)
+    h, w = x.shape[ay], x.shape[ax]
+    xp = _reflect101_pad(x.to(torch.int32), kh // 2, axes=(ay,))
+    xp = _reflect101_pad(xp, kw // 2, axes=(ax,))
+    acc = None
+    for dy in range(kh):
+        for dx in range(kw):
+            c = int(kernel[dy, dx])
+            if c == 0:
+                continue
+            term = c * xp.narrow(ay, dy, h).narrow(ax, dx, w)
+            acc = term if acc is None else acc + term
+    return acc.clamp(0, 255).to(torch.uint8)
+
+
+_SHARPEN_KERNEL = np.array([[-1, -1, -1], [-1, 9, -1], [-1, -1, -1]])
+
+
+def sharpen(x: torch.Tensor) -> torch.Tensor:
+    """The reference's 3x3 sharpen (frame_enhancer.py:40-42), exact."""
+    return filter2d_int(x, _SHARPEN_KERNEL)
+
+
+def normalize_minmax(x: torch.Tensor, alpha: float = 0.0, beta: float = 255.0) -> torch.Tensor:
+    """cv2.normalize(..., NORM_MINMAX) on u8, joint min/max over all pixels.
+    A constant image gives all-``alpha`` (cv2 saturates 0*inf to 0)."""
+    xf = x.float()
+    mn, mx = xf.min(), xf.max()
+    scale = (beta - alpha) / torch.clamp(mx - mn, min=1e-38)
+    out = torch.where(mx > mn, (xf - mn) * scale + alpha, alpha)
+    return torch.round(out).clamp(0, 255).to(torch.uint8)
+
+
 def _border_index(n: int, border: str, device) -> torch.Tensor:
     """Indices [-1, n] mapped into [0, n) for a 1-pixel border."""
-    i = torch.arange(-1, n + 1, device=device)
     if border == "replicate":
-        return i.clamp(0, n - 1)
+        return torch.arange(-1, n + 1, device=device).clamp(0, n - 1)
     if border == "reflect101":
-        i = i.abs()
-        return torch.where(i >= n, 2 * n - 2 - i, i)
+        return _reflect101_index(n, 1, device)
     raise ValueError(f"unknown border {border!r}")
 
 

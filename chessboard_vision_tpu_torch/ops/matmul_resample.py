@@ -1,4 +1,5 @@
-"""Bilinear square resample: frame -> (64, Qr, Qc) padded gray squares.
+"""Bilinear resample of a frame at planned coordinates: the padded gray
+squares, (64, Qr, Qc), and the warped color board of the enhanced path.
 
 Counterpart of chessboard_vision_tpu.ops.matmul_resample. ``build_plan``
 is the JAX package's numpy plan builder, unchanged, so the plans are equal
@@ -150,12 +151,13 @@ def _lerp(p0, p1, w0, w1, first_fused):
 
 
 def resample(gray: torch.Tensor, plan: MatmulResamplePlan, dims: MatmulResampleDims):
-    """gray: (src_h, src_w) u8/f32 -> (64, Qr, Qc) f32 bilinear samples."""
-    src = gray.reshape(-1).float()
+    """gray: (..., src_h, src_w) u8/f32 -> (..., 64, Qr, Qc) f32 bilinear
+    samples of each leading image (a planar frame's 3 channels at once)."""
+    src = gray.reshape(*gray.shape[:-2], -1).float()
     idx = plan.src_index
     w = dims.src_w
-    t00, t01 = src[idx], src[idx + 1]
-    t10, t11 = src[idx + w], src[idx + w + 1]
+    t00, t01 = src[..., idx], src[..., idx + 1]
+    t10, t11 = src[..., idx + w], src[..., idx + w + 1]
     fx, fy = plan.fx, plan.fy
     ox, oy = plan.ux_off == 0, plan.uy_off == 0
     top = _lerp(t00, t01, 1.0 - fx, fx, ox)
@@ -167,3 +169,37 @@ def resample(gray: torch.Tensor, plan: MatmulResamplePlan, dims: MatmulResampleD
 def resample_gray_u8(gray_frame: torch.Tensor, plan, dims) -> torch.Tensor:
     """u8 output with the pipeline's round-half-even, clip convention."""
     return torch.round(resample(gray_frame, plan, dims)).clamp(0, 255).to(torch.uint8)
+
+
+# ---------------------------------------------------------------------------
+# Board-level color warp (the with_enhancer path)
+# ---------------------------------------------------------------------------
+
+
+def board_tile_index(starts, tile: int, board_size: int) -> np.ndarray:
+    """(B, B) flat index into (64, T, T) tile samples of the tile that owns
+    each board pixel: BoardGeometry.board_tile_query_coords's overlapping
+    8x8 tiling (tile t = r*8+c covers rows starts[r]:starts[r]+T, columns
+    starts[c]:starts[c]+T), where row block r owns rows [r*T, (r+1)*T)
+    clipped to B, as in the JAX package's ``assemble_board_from_tiles``."""
+    pos = np.arange(board_size)
+    block = pos // tile
+    local = pos - np.asarray(starts)[block]  # row (or col) inside its tile
+    t = block[:, None] * 8 + block[None, :]
+    return (t * tile + local[:, None]) * tile + local[None, :]
+
+
+def assemble_board_from_tiles(tiles: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """(..., 64, T, T) tiles -> (..., B, B) board by one gather with
+    ``board_tile_index``'s index (the JAX package takes 64 static slices
+    and 9 concatenates per channel)."""
+    return tiles.reshape(*tiles.shape[:-3], -1)[..., index]
+
+
+def warp_board_color(planar_frame: torch.Tensor, plan: MatmulResamplePlan,
+                     dims: MatmulResampleDims, index: torch.Tensor) -> torch.Tensor:
+    """(3, Hf, Wf) u8 frame -> (3, B, B) u8 warped board: the tile plan's
+    bilinear samples of all three channels (``resample``'s rounding order,
+    bit-equal to the JAX package's per tile), rounded, then assembled."""
+    tiles = resample_gray_u8(planar_frame, plan, dims)  # (3, 64, T, T)
+    return assemble_board_from_tiles(tiles, index)

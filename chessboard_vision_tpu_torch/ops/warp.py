@@ -11,7 +11,7 @@ from typing import NamedTuple
 
 import torch
 
-from chessboard_vision_tpu.geometry import BoardGeometry
+from chessboard_vision_tpu_torch.geometry import BoardGeometry
 
 
 class DeviceGeometry(NamedTuple):

@@ -22,15 +22,17 @@ from typing import Optional
 
 import numpy as np
 
-from chessboard_vision_tpu import geometry as geo
-from chessboard_vision_tpu.rules import GameState, chess
-from chessboard_vision_tpu.utils.config import (
+from chessboard_vision_tpu_torch import geometry as geo
+from chessboard_vision_tpu_torch.device import resolve_device
+from chessboard_vision_tpu_torch.rules import GameState, chess
+from chessboard_vision_tpu_torch.utils.config import (
     CALIBRATION_FILE,
+    COLOR_PROFILE_FILE,
     PIECE_SETTINGS_FILE,
     SENSITIVITY_FILE,
     load_json_config,
 )
-from chessboard_vision_tpu.utils.logging import get_logger
+from chessboard_vision_tpu_torch.utils.logging import get_logger
 from chessboard_vision_tpu_torch.models.pipeline import (
     VisionPipeline,
     occupancy_to_set,
@@ -45,8 +47,8 @@ class GameSession:
     MOVE_COOLDOWN = 2.0  # seconds after a committed move
     FULL_SCAN_PERIOD = 30  # full 64-square scan every Nth frame
 
-    def __init__(self, device="cpu"):
-        self.device = device
+    def __init__(self, device="cuda"):
+        self.device = resolve_device(device, "GameSession")
         self.board_lock = threading.RLock()
 
         self.pipeline: Optional[VisionPipeline] = None
@@ -75,17 +77,24 @@ class GameSession:
         return True
 
     def configure(self, config: dict):
-        """Build the pipeline and control-plane components from calibration."""
-        if config.get("use_enhancer", False):
-            raise NotImplementedError(
-                "use_enhancer: the enhanced path is not ported yet (ROADMAP.md A11)"
-            )
+        """Build the pipeline and control-plane components from calibration.
+        ``"use_enhancer": true`` puts the 5-stage enhancement ahead of
+        detection in the same step, with the color profile of
+        ``config["enhancer_profile"]`` or, failing that, color_profile.json."""
         self.player_color = config.get("player_color")
         geometry = geo.BoardGeometry.from_config(config)
+        use_enhancer = bool(config.get("use_enhancer", False))
+        enhancer_profile = None
+        if use_enhancer:
+            enhancer_profile = config.get("enhancer_profile")
+            if enhancer_profile is None:
+                enhancer_profile = load_json_config(COLOR_PROFILE_FILE)
         self.pipeline = VisionPipeline(
             geometry,
             piece_settings=load_json_config(PIECE_SETTINGS_FILE),
             change_settings=load_json_config(SENSITIVITY_FILE),
+            with_enhancer=use_enhancer,
+            enhancer_profile=enhancer_profile,
             device=self.device,
         )
         self.pipe_state = self.pipeline.init_state()
@@ -182,8 +191,8 @@ class GameSession:
     def to_pgn(self, headers=None, comments=None, result=None,
                claim_draws=False) -> str:
         """The digitized game as a PGN document (rules/pgn.py)."""
-        from chessboard_vision_tpu.rules.chesslib import STARTING_FEN
-        from chessboard_vision_tpu.rules.pgn import game_to_pgn
+        from chessboard_vision_tpu_torch.rules.chesslib import STARTING_FEN
+        from chessboard_vision_tpu_torch.rules.pgn import game_to_pgn
 
         with self.board_lock:
             moves = [m.uci() for m in self.game.board.move_stack]

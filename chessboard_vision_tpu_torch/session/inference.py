@@ -17,7 +17,7 @@ from __future__ import annotations
 
 from typing import Optional, Set, Tuple
 
-from chessboard_vision_tpu.rules import chess
+from chessboard_vision_tpu_torch.rules import chess
 
 Pos = Tuple[int, int]
 

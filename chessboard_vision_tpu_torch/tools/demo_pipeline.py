@@ -5,7 +5,8 @@ runs the port's GameSession.on_frame over them on the chosen device, and
 prints each committed move, the final FEN and the PGN. Exits 1 if a
 scripted move is not committed or the FEN differs from the script's.
 
-Run: python -m chessboard_vision_tpu_torch.tools.demo_pipeline --device cuda
+Run: python -m chessboard_vision_tpu_torch.tools.demo_pipeline [--enhance]
+(on the card; ``--device cpu`` runs the plain PyTorch versions instead).
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import time
 import numpy as np
 import torch
 
-from chessboard_vision_tpu.rules import chess
+from chessboard_vision_tpu_torch.rules import chess
 from chessboard_vision_tpu_torch.session.game_session import GameSession
 from chessboard_vision_tpu_torch.tools.synth import SynthCamera
 
@@ -32,10 +33,12 @@ def occupancy_of(board) -> np.ndarray:
     return occ
 
 
-def calibrated_session(corners, display_size=None, device="cpu") -> GameSession:
+def calibrated_session(corners, display_size=None, device="cuda",
+                       use_enhancer=False) -> GameSession:
     """A GameSession on ``device`` calibrated from four board corners (TL,
     TR, BL, BR) of a ``display_size`` (width, height) frame, or of the
-    default 1280x720 when None, with the move cooldown off for replay."""
+    default 1280x720 when None, with the move cooldown off for replay.
+    ``use_enhancer`` runs the enhanced pipeline (config "use_enhancer")."""
     session = GameSession(device=device)
     session.MOVE_COOLDOWN = 0.0
     config = {
@@ -44,6 +47,7 @@ def calibrated_session(corners, display_size=None, device="cpu") -> GameSession:
         "orientation_flipped": False,
         "grid_lines_x": None,
         "grid_lines_y": None,
+        "use_enhancer": use_enhancer,
     }
     if display_size is not None:
         config["display_size"] = list(display_size)
@@ -85,13 +89,15 @@ def main(argv=None):
     ap.add_argument("--moves", default="e2e4 e7e5 g1f3 b8c6", help="scripted UCI moves")
     ap.add_argument("--frames-per-position", type=int, default=26)
     ap.add_argument("--seed", type=int, default=7)
-    ap.add_argument("--device", default="cpu", help="torch device, e.g. cpu or cuda")
+    ap.add_argument("--device", default="cuda", help="torch device, e.g. cuda or cpu")
+    ap.add_argument("--enhance", action="store_true",
+                    help="run the enhanced pipeline (CLAHE, bilateral, sharpen, normalize)")
     args = ap.parse_args(argv)
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: no CUDA device is available")
 
     rng = np.random.default_rng(args.seed)
-    session = calibrated_session(CORNERS, device=args.device)
+    session = calibrated_session(CORNERS, device=args.device, use_enhancer=args.enhance)
     camera = SynthCamera(CORNERS)
 
     moves = args.moves.split()

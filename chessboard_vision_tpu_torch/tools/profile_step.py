@@ -11,7 +11,7 @@ layout (full smart-scan set, chained state) and prints, per step:
 
 The card's name and power limit (nvidia-smi) head the output.
 
-Run: python -m chessboard_vision_tpu_torch.tools.profile_step [--steps 20]
+Run: python -m chessboard_vision_tpu_torch.tools.profile_step [--steps 20] [--enhance]
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ import time
 import numpy as np
 import torch
 
-from chessboard_vision_tpu.geometry import BoardGeometry
+from chessboard_vision_tpu_torch.geometry import BoardGeometry
 from chessboard_vision_tpu_torch.models.pipeline import VisionPipeline
 from chessboard_vision_tpu_torch.tools.synth import SynthCamera, bench_corners, initial_occupancy
 
@@ -34,6 +34,7 @@ def main(argv=None):
     ap.add_argument("--width", type=int, default=1920)
     ap.add_argument("--steps", type=int, default=20, help="steps per measurement")
     ap.add_argument("--top", type=int, default=12, help="kernels to list")
+    ap.add_argument("--enhance", action="store_true", help="profile the enhanced pipeline")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA device")
@@ -50,7 +51,7 @@ def main(argv=None):
     cam = SynthCamera(corners, frame_size=(h, w), board_px=g.board_size)
     rng = np.random.default_rng(0)
     frames = [cam.render(initial_occupancy(), rng) for _ in range(4)]
-    pipe = VisionPipeline(g, device="cuda")
+    pipe = VisionPipeline(g, with_enhancer=args.enhance, device="cuda")
     state = pipe.capture_reference(pipe.init_state(), frames[0])
     s2c = {(f, r) for f in range(8) for r in range(8)}
     for i in range(10):  # warm up the allocator and the kernel build
@@ -68,7 +69,7 @@ def main(argv=None):
     t2 = time.perf_counter()
     torch.cuda.synchronize()
     t3 = time.perf_counter()
-    print(f"{w}x{h}: host pack+upload {1e3 * (t1 - t0) / n:.3f} ms, step enqueue "
+    print(f"{w}x{h}{' enhanced' if args.enhance else ''}: host pack+upload {1e3 * (t1 - t0) / n:.3f} ms, step enqueue "
           f"{1e3 * (t2 - t1) / n:.3f} ms, enqueue+drain {1e3 * (t3 - t1) / n:.3f} ms per step")
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:

@@ -13,7 +13,7 @@ from typing import Tuple
 
 import numpy as np
 
-from chessboard_vision_tpu.geometry import get_perspective_transform
+from chessboard_vision_tpu_torch.geometry import get_perspective_transform
 
 LIGHT = (181, 217, 240)
 DARK = (99, 136, 181)

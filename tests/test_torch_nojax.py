@@ -1,8 +1,12 @@
-"""The port runs without jax and cv2, as on a machine that has neither.
+"""The port runs without jax, cv2 and the JAX package, as on a machine
+that has none of them.
 
-A subprocess blocks both imports (``sys.modules[name] = None``), imports
-every module of the port and runs one pipeline step on the CPU on a frame
-from the numpy-only renderer (tools/synth.py).
+A subprocess blocks the three imports (``sys.modules[name] = None``),
+imports every module of the port and runs one plain and one enhanced
+pipeline step on the CPU on frames from the numpy-only renderer
+(tools/synth.py), with the geometry from the port's own copy. The port's
+copies of the JAX package's host modules (``geometry``, ``rules``) give the
+same arrays, moves and FEN as the originals.
 """
 
 import os
@@ -11,7 +15,14 @@ import re
 import subprocess
 import sys
 
+import numpy as np
+import pytest
+
 import chessboard_vision_tpu_torch
+from chessboard_vision_tpu import geometry as jgeo
+from chessboard_vision_tpu import rules as jrules
+from chessboard_vision_tpu_torch import geometry as tgeo
+from chessboard_vision_tpu_torch import rules as trules
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = pathlib.Path(chessboard_vision_tpu_torch.__file__).parent
@@ -20,6 +31,7 @@ _SCRIPT = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None
 sys.modules["cv2"] = None
+sys.modules["chessboard_vision_tpu"] = None
 import numpy as np
 import chessboard_vision_tpu_torch as port
 
@@ -28,7 +40,7 @@ for name in names:
     importlib.import_module(name)
 assert len(names) >= 20, names
 
-from chessboard_vision_tpu import geometry as geo
+from chessboard_vision_tpu_torch import geometry as geo
 from chessboard_vision_tpu_torch.models.pipeline import (
     VisionPipeline, occupancy_to_set, outputs_to_numpy)
 from chessboard_vision_tpu_torch.tools.synth import SynthCamera, bench_corners, initial_occupancy
@@ -38,15 +50,17 @@ g = geo.BoardGeometry.from_calibration(corners, display_size=(1280, 720))
 cam = SynthCamera(corners, frame_size=(720, 1280), board_px=620)
 rng = np.random.default_rng(0)
 occ = initial_occupancy()
-pipe = VisionPipeline(g, device="cpu")
-state = pipe.capture_reference(pipe.init_state(), cam.render(occ, rng))
-state, out = pipe.step(state, cam.render(occ, rng))
-out = outputs_to_numpy(out)
-assert all(np.isfinite(np.asarray(f, np.float64)).all() for f in out)
 truth = {(f, r) for f in range(8) for r in range(8) if occ[f, r]}
-assert occupancy_to_set(out.occupancy) == truth, sorted(occupancy_to_set(out.occupancy) ^ truth)
-assert not any(m == "jax" or m.startswith(("jax.", "jaxlib", "cv2")) for m in sys.modules
-               if sys.modules[m] is not None)
+for enhance in (False, True):
+    pipe = VisionPipeline(g, with_enhancer=enhance, device="cpu")
+    state = pipe.capture_reference(pipe.init_state(), cam.render(occ, rng))
+    state, out = pipe.step(state, cam.render(occ, rng))
+    out = outputs_to_numpy(out)
+    assert all(np.isfinite(np.asarray(f, np.float64)).all() for f in out)
+    got = occupancy_to_set(out.occupancy)
+    assert got == truth, (enhance, sorted(got ^ truth))
+assert not any(m == "jax" or m.startswith(("jax.", "jaxlib", "cv2", "chessboard_vision_tpu."))
+               for m in sys.modules if sys.modules[m] is not None)
 print("NOJAX_OK", len(names))
 """
 
@@ -64,34 +78,68 @@ def test_port_imports_and_steps_without_jax_or_cv2():
     assert "NOJAX_OK" in proc.stdout
 
 
+_IMPORT = re.compile(r"^\s*(?:import|from)\s+([\w.]+)", re.M)
+
+
+def _imported(path):
+    return {m.group(1).split(".")[0] for m in _IMPORT.finditer(path.read_text())}
+
+
 def test_port_sources_never_import_jax_or_cv2():
-    pattern = re.compile(r"^\s*(import (jax|cv2)\b|from (jax|cv2)\b)", re.M)
     files = list(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
-    offenders = [str(p) for p in files if pattern.search(p.read_text())]
+    offenders = [str(p) for p in files if _imported(p) & {"jax", "jaxlib", "cv2"}]
     assert not offenders
-    # The smoke script reaches the JAX package's host modules only through
-    # the port's own entry points.
-    reference = re.compile(r"^\s*(import|from) chessboard_vision_tpu\b", re.M)
-    assert not reference.search((REPO / "chip_smoke.py").read_text())
-
-
-# The JAX package's modules that import no jax, and the only ones the port uses.
-_JAX_FREE_HOST_MODULES = (
-    "geometry", "rules", "rules.chesslib", "rules.pgn", "utils.config", "utils.logging",
-)
 
 
 def test_port_imports_only_the_jax_free_host_modules_of_the_reference():
-    pattern = re.compile(
-        r"^\s*(?:from chessboard_vision_tpu\b((?:\.\w+)*) import (\w+)"
-        r"|import chessboard_vision_tpu\b((?:\.\w+)*))",
-        re.M,
-    )
-    used = set()
-    for path in PORT.rglob("*.py"):
-        for m in pattern.finditer(path.read_text()):
-            sub = (m.group(1) or m.group(3) or "").lstrip(".")
-            # "from chessboard_vision_tpu import geometry" names the module.
-            used.add(sub or m.group(2))
-    assert used, "the port should use the reference's geometry and rules"
-    assert used <= set(_JAX_FREE_HOST_MODULES), sorted(used - set(_JAX_FREE_HOST_MODULES))
+    """No file of the port, and not chip_smoke.py, imports the JAX package:
+    the port keeps its own copies of the host modules it needs."""
+    files = list(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    offenders = [str(p) for p in files if "chessboard_vision_tpu" in _imported(p)]
+    assert not offenders
+    assert "chessboard_vision_tpu_torch" in _imported(PORT / "models" / "pipeline.py")
+
+
+@pytest.mark.parametrize("grid", [False, True], ids=["linear_grid", "smart_grid"])
+def test_copied_geometry_equals_the_reference(grid):
+    """The port's geometry copy builds the same BoardGeometry arrays."""
+    corners = np.array([[260, 80], [1020, 95], [240, 640], [1035, 655]])
+    kw = dict(display_size=(1280, 720), orientation_flipped=grid)
+    if grid:
+        kw.update(grid_lines_x=[0, 80, 155, 232, 310, 388, 466, 544, 620],
+                  grid_lines_y=[0, 76, 154, 233, 311, 389, 466, 543, 620], blur_pad=3)
+    j = jgeo.BoardGeometry.from_calibration(corners, **kw)
+    t = tgeo.BoardGeometry.from_calibration(corners, **kw)
+    for name in ("matrix", "warp_X", "warp_Y", "src_corners"):
+        np.testing.assert_array_equal(getattr(t, name), getattr(j, name), err_msg=name)
+    assert (t.board_size, t.grid_x, t.grid_y) == (j.board_size, j.grid_x, j.grid_y)
+    for name in ("ix", "iy", "mask", "heights", "widths", "counts"):
+        np.testing.assert_array_equal(getattr(t.squares, name), getattr(j.squares, name),
+                                      err_msg=name)
+    for a, b in zip(t.square_query_coords() + t.board_tile_query_coords()[:2],
+                    j.square_query_coords() + j.board_tile_query_coords()[:2]):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_copied_rules_give_the_same_moves_and_fen():
+    """A game with castling, en passant and a promotion through both rules
+    copies: the same legal moves after each ply, FEN, PGN and occupancy FEN."""
+    plies = "e2e4 d7d5 e4d5 c7c5 d5c6 g8f6 c6b7 e7e6 b7a8q f8e7 g1f3 e8g8 f1c4".split()
+    jb, tb = jrules.chess.Board(), trules.chess.Board()
+    for uci in plies:
+        assert sorted(m.uci() for m in tb.legal_moves) == sorted(m.uci() for m in jb.legal_moves)
+        jb.push_uci(uci)
+        tb.push_uci(uci)
+        assert tb.fen() == jb.fen()
+    assert trules.game_to_pgn(plies) == jrules.game_to_pgn(plies)
+    jg, tg = jrules.GameState(), trules.GameState()
+    occ = jg.get_board_occupancy()
+    occ.discard((4, 1))
+    occ.add((4, 3))
+    assert [str(x) for x in tg.process_occupancy_change(set(occ))] == [
+        str(x) for x in jg.process_occupancy_change(set(occ))]
+    assert tg.get_fen() == jg.get_fen()
+    grid = np.zeros((8, 8), bool)
+    for f, r in occ:
+        grid[f, r] = True
+    assert trules.occupancy_to_fen(grid) == jrules.occupancy_to_fen(grid)

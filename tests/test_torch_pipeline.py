@@ -4,15 +4,21 @@ The scenario of tests/test_pipeline_e2e.py (reference capture, stable
 frames, e2->e4, a hand-occlusion frame, forced full rescans) runs through
 both packages on the same 1280x720 frames; every frame's StepOutputs must
 agree: bool/i32 fields exactly, f32 fields within the tolerance below.
+The enhanced pipeline (``with_enhancer=True``) is held against the JAX
+package's with its TPU kernels (bilateral, CLAHE) in interpret mode.
 """
+
+import functools
 
 import jax
 import numpy as np
 import pytest
 import torch
+from jax.experimental.pallas import tpu as pltpu
 
 from chessboard_vision_tpu import geometry as geo
 from chessboard_vision_tpu.models.pipeline import VisionPipeline as JaxPipeline
+from chessboard_vision_tpu.ops import enhance as jax_enhance
 from chessboard_vision_tpu_torch.models import pipeline as tp
 from chessboard_vision_tpu_torch.models.pipeline import VisionPipeline as TorchPipeline
 
@@ -30,7 +36,8 @@ EXACT = ("occupancy", "raw_occupancy", "visual_changes", "method", "radius",
          "change_intensity")
 
 
-def assert_outputs_match(t_out, j_out, where=""):
+def assert_outputs_match(t_out, j_out, where="", atol=None):
+    """``atol`` maps a field name to its own absolute tolerance."""
     t_out = tp.outputs_to_numpy(t_out)
     for f in tp.StepOutputs._fields:
         t, j = getattr(t_out, f), np.asarray(getattr(j_out, f))
@@ -38,7 +45,8 @@ def assert_outputs_match(t_out, j_out, where=""):
         if f in EXACT:
             np.testing.assert_array_equal(t, j, err_msg=f"{where} {f}")
         else:
-            np.testing.assert_allclose(t, j, rtol=F32_RTOL, atol=F32_ATOL, err_msg=f"{where} {f}")
+            np.testing.assert_allclose(t, j, rtol=F32_RTOL, atol=(atol or {}).get(f, F32_ATOL),
+                                       err_msg=f"{where} {f}")
 
 
 def assert_states_match(t_state, j_state):
@@ -74,7 +82,7 @@ def clip():
 @pytest.fixture(scope="module")
 def pipes():
     g = geo.BoardGeometry.from_calibration(DEFAULT_CORNERS)
-    return JaxPipeline(g, hough_backend="conv", donate_state=False), TorchPipeline(g)
+    return JaxPipeline(g, hough_backend="conv", donate_state=False), TorchPipeline(g, device="cpu")
 
 
 ALL_SQUARES = {(f, r) for f in range(8) for r in range(8)}
@@ -158,7 +166,44 @@ def test_outputs_to_numpy_dtypes_and_unsupported_options(pipes):
     assert host.confidence.dtype == np.float32 and (host.confidence == -1.5).all()
     np.testing.assert_array_equal(host.radius, np.arange(64))
     g = tpipe.geometry
-    with pytest.raises(NotImplementedError, match="A11"):
-        TorchPipeline(g, with_enhancer=True)
+    enhanced = TorchPipeline(g, with_enhancer=True, device="cpu")
+    assert enhanced.with_enhancer and enhanced._tile_index.shape == (g.board_size,) * 2
+    assert enhanced._tile_dims.q_rows == -(-g.board_size // 8)
     with pytest.raises(NotImplementedError, match="A12"):
-        TorchPipeline(g, hough_backend="exact")
+        TorchPipeline(g, hough_backend="exact", device="cpu")
+    if not torch.cuda.is_available():  # the card is the default device
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            TorchPipeline(g)
+
+
+# The enhanced squares' gray differs from the JAX package's on a few pixels
+# (the bilateral's and Lab -> BGR's one-level differences, sharpened): the
+# per-square means over ~1,000-pixel regions move by up to this much.
+ENHANCED_MEAN_ATOL = 0.05
+
+
+def test_enhanced_pipeline_matches_jax_with_pallas_kernels(clip, pipes, monkeypatch):
+    """with_enhancer=True vs the JAX enhanced pipeline with its TPU kernels
+    in interpret mode (bilateral_backend='pallas', clahe switched to
+    backend='pallas'): reference capture, a stable frame, then e2->e4 with a
+    forced full scan. bool/i32 outputs exact on every frame."""
+    frame0, frames = clip
+    monkeypatch.setattr(jax_enhance, "clahe", functools.partial(jax_enhance.clahe, backend="pallas"))
+    g = pipes[1].geometry
+    tpipe = TorchPipeline(g, with_enhancer=True, device="cpu")
+    atol = {"center_mean": ENHANCED_MEAN_ATOL, "corner_mean": ENHANCED_MEAN_ATOL}
+    with pltpu.force_tpu_interpret_mode():
+        jp = JaxPipeline(g, hough_backend="conv", with_enhancer=True,
+                         bilateral_backend="pallas", donate_state=False)
+        js = jp.capture_reference(jp.init_state(), frame0)
+        ts = tpipe.capture_reference(tpipe.init_state(), frame0)
+        for i, s2c in ((0, None), (4, ALL_SQUARES)):
+            js, jo = jp.step(js, frames[i], squares_to_check=s2c)
+            ts, to = tpipe.step(ts, frames[i], squares_to_check=s2c)
+            assert_outputs_match(to, jo, where=f"enhanced frame {i}", atol=atol)
+    truth = initial_occupancy()
+    truth[4, 1], truth[4, 3] = False, True
+    # The fresh detection shows the move (the smoothed occupancy lags it).
+    assert tp.occupancy_to_set(to.raw_occupancy) == {
+        (f, r) for f in range(8) for r in range(8) if truth[f, r]
+    }

@@ -4,12 +4,17 @@ Both sessions see the same rendered 1280x720 frames of one scripted move
 and must commit the same move on the same frame and reach the same FEN.
 The JAX session's pipeline is forced to the conv Hough backend (the port's
 only one) by patching the name its module builds pipelines from, in this
-test only.
+test only. The enhanced sessions (``"use_enhancer": true``) run the JAX
+package's XLA forms of the bilateral and CLAHE, which its ``auto`` backend
+picks on a CPU: 26 frames with the TPU kernels in interpret mode would take
+minutes. tests/test_torch_pipeline.py holds the enhanced step against the
+TPU kernels themselves.
 """
 
 import functools
 
 import numpy as np
+import pytest
 import torch
 
 from chessboard_vision_tpu.models.pipeline import VisionPipeline as JaxPipeline
@@ -42,7 +47,7 @@ def _drive(session, frames):
     return None
 
 
-def test_port_session_commits_same_move_and_fen_as_jax(monkeypatch):
+def _parity(monkeypatch, config, uci):
     monkeypatch.setattr(
         jax_session_mod, "VisionPipeline",
         functools.partial(JaxPipeline, hough_backend="conv"),
@@ -50,23 +55,43 @@ def test_port_session_commits_same_move_and_fen_as_jax(monkeypatch):
     rng = np.random.default_rng(11)
     script = chess.Board()
     frame0 = make_board_frame(occupancy_of(script), rng)
-    script.push_uci("e2e4")
+    script.push_uci(uci)
     frames = [make_board_frame(occupancy_of(script), rng) for _ in range(26)]
 
     jsess = jax_session_mod.GameSession(headless=True)
-    tsess = TorchSession()
-    assert jsess.on_calibration_requested(None, config=dict(CONFIG))
-    assert tsess.on_calibration_requested(config=dict(CONFIG))
+    tsess = TorchSession(device="cpu")
+    assert jsess.on_calibration_requested(None, config=dict(config))
+    assert tsess.on_calibration_requested(config=dict(config))
     for s in (jsess, tsess):
         s.MOVE_COOLDOWN = 0.0
         s.capture_reference_frame(frame0)
     assert jsess.pipeline.hough_backend == "conv"
+    assert tsess.pipeline.with_enhancer == jsess.pipeline.with_enhancer == bool(
+        config.get("use_enhancer"))
 
     got_j, got_t = _drive(jsess, frames), _drive(tsess, frames)
     assert got_t is not None and got_t == got_j
-    assert got_t[0] == "e2e4"
+    assert got_t[0] == uci
     assert tsess.game.get_fen() == jsess.game.get_fen() == script.fen()
     assert tsess.to_pgn() == jsess.to_pgn()
+
+
+def test_port_session_commits_same_move_and_fen_as_jax(monkeypatch):
+    _parity(monkeypatch, CONFIG, "e2e4")
+
+
+def test_enhanced_session_commits_same_move_and_fen_as_jax(monkeypatch):
+    """"use_enhancer": true with a color profile in the config: the same
+    move on the same frame and the same FEN as the JAX session."""
+    profile = {"contrast": 1.1, "brightness": 4, "sat_scale": 1.2}
+    _parity(monkeypatch, {**CONFIG, "use_enhancer": True, "enhancer_profile": profile}, "e2e4")
+
+
+def test_session_needs_the_card_unless_asked_for_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device works")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TorchSession()
 
 
 def test_demo_pipeline_plays_a_scripted_move(capsys):
