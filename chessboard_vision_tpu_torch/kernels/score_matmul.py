@@ -1,9 +1,12 @@
 """Binding of ``score_matmul.cu`` and its plain PyTorch version.
 
 ``score_matmul`` picks by the tensors' device alone: CPU tensors take the
-plain version (the CPU tests run it), CUDA tensors launch the kernel or
-raise. ``score_matmul.launches`` counts kernel launches, so a run can show
-that its main path went through the kernel.
+plain version (the CPU tests run it), CUDA tensors launch a kernel or
+raise. Which kernel is decided by shape and alignment (``uses_tma``): the
+TMA + wgmma kernel where TMA can describe the operands, else the staged
+WMMA kernel. ``score_matmul.launches`` counts kernel launches, so a run can
+show that its main path went through a kernel, and ``score_matmul.last_path``
+names the kernel of the latest launch (``"tma"`` or ``"staged"``).
 """
 
 from __future__ import annotations
@@ -27,11 +30,12 @@ def _library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = load("score_matmul")
-        lib.cbv_score_matmul.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ]
-        lib.cbv_score_matmul.restype = ctypes.c_int
+        for fn in (lib.cbv_score_matmul_tma, lib.cbv_score_matmul_staged):
+            fn.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ]
+            fn.restype = ctypes.c_int
         lib.cbv_cuda_error_string.argtypes = [ctypes.c_int]
         lib.cbv_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -56,6 +60,13 @@ def _check(basis: torch.Tensor, pf: torch.Tensor) -> None:
         raise ValueError("score_matmul: dimension exceeds int32")
 
 
+def uses_tma(basis: torch.Tensor, pf: torch.Tensor) -> bool:
+    """Whether TMA can describe both operands: 16-byte row strides (K % 8
+    == 0 for bf16) and 16-byte aligned base addresses."""
+    return (basis.shape[1] % 8 == 0 and basis.data_ptr() % 16 == 0
+            and pf.data_ptr() % 16 == 0)
+
+
 def score_matmul(basis: torch.Tensor, pf: torch.Tensor) -> torch.Tensor:
     """scores[m, n] = sum_k basis[m, k] * pf[n, k], bf16 in, f32 out."""
     if basis.device.type == "cpu" and pf.device.type == "cpu":
@@ -64,17 +75,19 @@ def score_matmul(basis: torch.Tensor, pf: torch.Tensor) -> torch.Tensor:
     lib = _library()
     M, K = basis.shape
     N = pf.shape[0]
+    path = "tma" if uses_tma(basis, pf) else "staged"
+    launch = lib.cbv_score_matmul_tma if path == "tma" else lib.cbv_score_matmul_staged
     out = torch.empty((M, N), dtype=torch.float32, device=basis.device)
     with torch.cuda.device(basis.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.cbv_score_matmul(
-            basis.data_ptr(), pf.data_ptr(), out.data_ptr(), M, N, K, stream
-        )
+        rc = launch(basis.data_ptr(), pf.data_ptr(), out.data_ptr(), M, N, K, stream)
     if rc != 0:
         msg = lib.cbv_cuda_error_string(rc).decode()
-        raise RuntimeError(f"score_matmul launch failed: {msg} ({rc})")
+        raise RuntimeError(f"score_matmul ({path}) launch failed: {msg} ({rc})")
     score_matmul.launches += 1
+    score_matmul.last_path = path
     return out
 
 
 score_matmul.launches = 0
+score_matmul.last_path = None

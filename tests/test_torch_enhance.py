@@ -184,6 +184,39 @@ def test_bilateral_plain_vs_pallas(shape):
     assert_within_one_level(got, want, what=f"bilateral {shape}")
 
 
+def _bilateral_table_form(img: torch.Tensor) -> torch.Tensor:
+    """The bilateral kernel's arithmetic in torch: the color distance as an
+    integer, its weight looked up in the 766-entry table, every sum started
+    from its first term."""
+    r = tbil.KERNEL_D // 2
+    sw = tbil.space_weights(tbil.KERNEL_D, 75.0)
+    table = tbil.color_weight_table_reference(75.0)
+    _, h, w = img.shape
+    p = tfilters._reflect101_pad(img, r).to(torch.int32)
+    center = p[:, r : r + h, r : r + w]
+    num = den = None
+    for dy in range(tbil.KERNEL_D):
+        rn = rd = None
+        for dx in range(tbil.KERNEL_D):
+            if sw[dy, dx] == 0.0:
+                continue
+            nb = p[:, dy : dy + h, dx : dx + w]
+            wt = float(sw[dy, dx]) * table[(nb - center).abs().sum(0)]
+            t = wt * nb.float()
+            rn, rd = (t, wt) if rn is None else (rn + t, rd + wt)
+        num, den = (rn, rd) if num is None else (num + rn, den + rd)
+    return torch.round(num / den).clamp(0, 255).to(torch.uint8)
+
+
+@pytest.mark.parametrize("shape", [(3, 64, 96), (3, 37, 50)])
+def test_bilateral_table_form_equals_plain(shape):
+    """The kernel's form (integer color distance, table lookup, sums from
+    their first term, 49 taps) is the plain version's function, bit for bit."""
+    img = torch.from_numpy(np.random.default_rng(shape[2]).integers(0, 256, shape, np.uint8))
+    assert int((tbil.space_weights(tbil.KERNEL_D, 75.0) != 0).sum()) == 49
+    assert torch.equal(_bilateral_table_form(img), tbil.bilateral_reference(img))
+
+
 def _padded(h, w, tiles, seed):
     img = np.random.default_rng(seed).integers(0, 256, (h, w), np.uint8)
     th, tw = -(-h // tiles), -(-w // tiles)

@@ -164,3 +164,15 @@ def test_score_matmul_cpu_takes_the_plain_version():
         tsm.score_matmul(ta.to("meta"), tb)
     with pytest.raises(ValueError, match="expected CUDA"):
         tsm.score_matmul(ta.to("meta"), tb.to("meta"))
+
+
+def test_score_matmul_kernel_choice_by_shape_and_alignment():
+    """The TMA kernel needs K % 8 == 0 (16-byte rows) and 16-byte aligned
+    operands; anything else goes to the staged kernel."""
+    a = torch.zeros(128, 3200, dtype=torch.bfloat16)
+    b = torch.zeros(64, 3200, dtype=torch.bfloat16)
+    assert tsm.uses_tma(a, b)
+    assert not tsm.uses_tma(a[:, :1250].contiguous(), b[:, :1250].contiguous())
+    shifted = torch.zeros(128 * 64 + 1, dtype=torch.bfloat16)[1:].view(128, 64)
+    assert shifted.data_ptr() % 16 != 0
+    assert not tsm.uses_tma(shifted, b[:, :64].contiguous())

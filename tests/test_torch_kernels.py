@@ -23,10 +23,8 @@ from chessboard_vision_tpu_torch.tools.synth import SynthCamera, bench_corners, 
 # bf16 products summed in f32 in another order: the tolerance of the JAX
 # package's Pallas-vs-dot test (tests/test_hough_conv.py).
 SCORE_RTOL, SCORE_ATOL = 2e-4, 2e-3
-# The bilateral kernel and its plain version round the same f32 operations
-# in the same order, but the card's expf and torch's exp may differ by an
-# ulp: one level on at most this fraction of pixels.
-BILATERAL_FRACTION = 1e-4
+# The Hough basis at 1080p: (Mq, K) of the conv plan.
+M_1080P, K_1080P = 7168, 3200
 
 pytestmark = pytest.mark.cuda
 
@@ -50,6 +48,58 @@ def test_score_matmul_kernel_vs_plain(cuda, m, k):
     torch.cuda.synchronize()
     assert sm.score_matmul.launches == before + 1
     torch.testing.assert_close(got, sm.score_matmul_reference(a, b), rtol=SCORE_RTOL, atol=SCORE_ATOL)
+
+
+@pytest.mark.parametrize("m,k,n", [
+    (M_1080P, K_1080P, 128),  # two column tiles
+    (M_1080P, K_1080P, 40),  # a ragged column tile
+    (1000, K_1080P, 64),  # rows not a multiple of the 64-row tile
+    (2048, 1250, 40),  # the staged kernel with a ragged column tile
+])
+def test_score_matmul_kernel_shapes(cuda, m, k, n):
+    """Other widths N and a ragged M on the TMA kernel (K % 8 == 0) and the
+    staged one (K % 8 != 0), against the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(m + k + n)
+    a = torch.randn(m, k, device=cuda, generator=g).to(torch.bfloat16)
+    b = torch.randn(n, k, device=cuda, generator=g).to(torch.bfloat16)
+    got = sm.score_matmul(a, b)
+    torch.cuda.synchronize()
+    assert sm.score_matmul.last_path == ("tma" if k % 8 == 0 else "staged")
+    torch.testing.assert_close(got, sm.score_matmul_reference(a, b), rtol=SCORE_RTOL, atol=SCORE_ATOL)
+
+
+def test_score_matmul_launches_are_bit_equal(cuda):
+    """No atomics and no split of K: two launches on the same operands give
+    the same scores, bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    a = torch.randn(M_1080P, K_1080P, device=cuda, generator=g).to(torch.bfloat16)
+    b = torch.randn(64, K_1080P, device=cuda, generator=g).to(torch.bfloat16)
+    first, second = sm.score_matmul(a, b), sm.score_matmul(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_score_matmul_path_by_shape_and_alignment(cuda):
+    """The 1080p shapes take the TMA kernel; K % 8 != 0 and an operand that
+    is not 16-byte aligned take the staged one, with the same results."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    b = torch.randn(64, K_1080P, device=cuda, generator=g).to(torch.bfloat16)
+    a = torch.randn(M_1080P, K_1080P, device=cuda, generator=g).to(torch.bfloat16)
+    before = sm.score_matmul.launches
+    sm.score_matmul(a, b)
+    assert sm.score_matmul.last_path == "tma" and sm.score_matmul.launches == before + 1
+    sm.score_matmul(a[:, :37].contiguous(), b[:, :37].contiguous())
+    assert sm.score_matmul.last_path == "staged"
+    # A contiguous view two bytes into its storage: TMA cannot take it.
+    flat = torch.empty(256 * 64 + 1, device=cuda, dtype=torch.bfloat16)
+    shifted = flat[1:].view(256, 64)
+    shifted.copy_(a[:256, :64])
+    assert shifted.data_ptr() % 16 != 0
+    got = sm.score_matmul(shifted, b[:, :64].contiguous())
+    torch.cuda.synchronize()
+    assert sm.score_matmul.last_path == "staged"
+    torch.testing.assert_close(got, sm.score_matmul_reference(shifted, b[:, :64]),
+                               rtol=SCORE_RTOL, atol=SCORE_ATOL)
 
 
 def test_score_matmul_refuses_bad_inputs(cuda):
@@ -126,16 +176,27 @@ def test_find_circle_on_card_matches_cpu(cuda):
 
 @pytest.mark.parametrize("shape,seed", [((3, 980, 980), 0), ((3, 77, 77), 1), ((3, 37, 1000), 2)])
 def test_bilateral_kernel_vs_plain(cuda, shape, seed):
-    """(3, 980, 980) is the 1080p board; odd shapes exercise the ragged
-    blocks and the reflect-101 halo."""
+    """Bit-equal: the kernel and its plain version round the same f32
+    operations in the same order, and the kernel's color weights are the
+    card's expf of the same products. (3, 980, 980) is the 1080p board; odd
+    shapes exercise the ragged blocks and the reflect-101 halo."""
     g = torch.Generator(device=cuda).manual_seed(seed)
     img = torch.randint(0, 256, shape, device=cuda, generator=g, dtype=torch.uint8)
     before = kb.bilateral_planar.launches
     got = kb.bilateral_planar(img)
     torch.cuda.synchronize()
     assert kb.bilateral_planar.launches == before + 1
-    d = (got.int() - kb.bilateral_reference(img).int()).abs()
-    assert int(d.max()) <= 1 and float((d > 0).float().mean()) <= BILATERAL_FRACTION
+    assert torch.equal(got, kb.bilateral_reference(img))
+
+
+def test_bilateral_color_table_equals_torch_exp(cuda):
+    """The kernel's table of exp((cd * cd) * gc), built once by the card's
+    expf, equals torch.exp on the card for all 766 color distances, and a
+    second request returns the cached table."""
+    table = kb.color_weight_table(cuda)
+    assert table.shape == (kb.CD_LEVELS,)
+    assert torch.equal(table, kb.color_weight_table_reference(device=cuda))
+    assert kb.color_weight_table(cuda).data_ptr() == table.data_ptr()
 
 
 def _padded(cuda, h, w, tiles, seed):
