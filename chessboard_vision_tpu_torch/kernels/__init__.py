@@ -16,7 +16,7 @@ import shutil
 import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, NamedTuple, Sequence
+from typing import Dict, NamedTuple, Optional, Sequence
 
 KERNEL_DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(KERNEL_DIR, "_build")
@@ -44,10 +44,11 @@ def _nvcc() -> str:
     return path
 
 
-def build(name: str) -> BuildResult:
-    """Compile ``<name>.cu`` into ``_build/lib<name>_<hash>.so`` unless an
-    up-to-date library is already there."""
-    src = os.path.join(KERNEL_DIR, name + ".cu")
+def build(name: str, source: Optional[str] = None) -> BuildResult:
+    """Compile ``<name>.cu`` (or the file ``source``) into
+    ``_build/lib<name>_<hash>.so`` unless an up-to-date library is already
+    there."""
+    src = source or os.path.join(KERNEL_DIR, name + ".cu")
     with open(src, "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
     lib = os.path.join(BUILD_DIR, f"lib{name}_{digest[:16]}.so")

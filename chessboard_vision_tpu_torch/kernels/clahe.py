@@ -1,9 +1,16 @@
-"""Binding of ``clahe.cu`` (histogram and LUT apply) and plain versions.
+"""Binding of ``clahe.cu`` (histograms with LUTs, LUT apply) and plain versions.
 
-Both wrappers pick by the tensors' device alone: CPU tensors take the plain
+The wrappers pick by the tensors' device alone: CPU tensors take the plain
 version (the CPU tests run it), CUDA tensors launch the kernel or raise.
-``clahe_hist.launches`` and ``clahe_apply.launches`` count kernel launches.
-The input is the reflect-padded image, (th * tiles, tw * tiles) u8.
+``clahe_hist_luts.launches``, ``clahe_hist.launches`` and
+``clahe_apply.launches`` count kernel launches (the first two launch the
+same histogram kernel, with and without its LUT epilogue).
+
+The input is the unpadded (H, W) u8 plane, tiled as CLAHE tiles it: th =
+ceil(H / tiles), tw = ceil(W / tiles), so (tiles - 1) * th < H <= th * tiles
+(likewise W). The histograms are those of its reflect-101 pad to
+(th * tiles, tw * tiles), which the kernel reads in place; a plane that is
+already padded is taken as it is.
 """
 
 from __future__ import annotations
@@ -19,23 +26,63 @@ from chessboard_vision_tpu_torch.ops.xla_rounding import fma
 _lib = None
 
 
-def _check_padded(img: torch.Tensor, th: int, tw: int, tiles: int, what: str) -> None:
+def _check_tiled(img: torch.Tensor, th: int, tw: int, tiles: int, what: str) -> None:
     if img.dtype != torch.uint8 or img.dim() != 2:
         raise ValueError(f"{what}: expected a 2-D uint8 image, got {tuple(img.shape)} {img.dtype}")
-    if tuple(img.shape) != (th * tiles, tw * tiles):
-        raise ValueError(f"{what}: image {tuple(img.shape)} is not {tiles}x{tiles} tiles "
-                         f"of {th}x{tw}")
+    for n, size in zip(img.shape, (th, tw)):
+        # the padded extent is whole tiles, padded by one reflection at most
+        if not ((tiles - 1) * size < n <= size * tiles and size * tiles - n < n):
+            raise ValueError(f"{what}: image {tuple(img.shape)} does not cut into {tiles}x{tiles} "
+                             f"tiles of {th}x{tw}")
+
+
+def reflect_pad_end(img: torch.Tensor, hp: int, wp: int) -> torch.Tensor:
+    """Reflect-101 rows/cols onto the bottom and right, to (hp, wp)."""
+    for ax, n in ((0, hp), (1, wp)):
+        size = img.shape[ax]
+        if n > size:
+            i = torch.arange(n, device=img.device)
+            img = img.index_select(ax, torch.where(i >= size, 2 * size - 2 - i, i))
+    return img
 
 
 def clahe_hist_reference(img: torch.Tensor, th: int, tw: int, tiles: int) -> torch.Tensor:
-    """(tiles^2, 256) i32 per-tile histograms by one bincount over
-    tile * 256 + value keys."""
+    """(tiles^2, 256) i32 per-tile histograms of the reflect pad by one
+    bincount over tile * 256 + value keys."""
+    img = reflect_pad_end(img, th * tiles, tw * tiles)
     Hp, Wp = img.shape
     ty = torch.arange(Hp, device=img.device) // th
     tx = torch.arange(Wp, device=img.device) // tw
     keys = (ty[:, None] * tiles + tx[None, :]) * 256 + img.long()
     n = tiles * tiles
     return torch.bincount(keys.reshape(-1), minlength=n * 256).reshape(n, 256).to(torch.int32)
+
+
+def _lut_scale(area: int) -> float:
+    """255 / area rounded to f32, as the JAX package computes it."""
+    return float(np.float32(255.0 / area))
+
+
+def clahe_luts_from_hist(hist: torch.Tensor, area: int, clip_abs: int) -> torch.Tensor:
+    """(n_tiles, 256) i32 histograms -> (n_tiles, 256) f32 integer-valued
+    LUTs: clip, OpenCV's two-phase excess redistribution, scaled CDF."""
+    excess = (hist - clip_abs).clamp(min=0).sum(-1, dtype=torch.int32)
+    hist = hist.clamp(max=clip_abs)
+    batch = excess // 256
+    resid = excess - batch * 256
+    hist = hist + batch[:, None]
+    step = (256 // resid.clamp(min=1)).clamp(min=1)
+    bins = torch.arange(256, dtype=torch.int32, device=hist.device)
+    bump = ((bins % step[:, None]) == 0) & ((bins // step[:, None]) < resid[:, None])
+    cdf = torch.cumsum(hist + bump.to(torch.int32), -1, dtype=torch.int32)
+    return torch.round(cdf.float() * _lut_scale(area)).clamp(0, 255)
+
+
+def clahe_hist_luts_reference(img: torch.Tensor, th: int, tw: int, tiles: int,
+                              clip_abs: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The reflect pad's per-tile histograms and the LUTs built from them."""
+    hist = clahe_hist_reference(img, th, tw, tiles)
+    return hist, clahe_luts_from_hist(hist, th * tw, clip_abs)
 
 
 def _inv(size: int) -> float:
@@ -59,9 +106,9 @@ def clahe_apply_reference(img: torch.Tensor, luts: torch.Tensor, th: int, tw: in
     """Bilinear mix of the 4 neighbour-tile LUTs with the kernel's f32
     operations: ey = fma(1 - fy, e0, fy * e1) per tile column, then
     fma(fx, ey1, (1 - fx) * ey0) (clahe.cu says why)."""
-    Hp, Wp = img.shape
-    y0, y1, fy = (a[:, None] for a in _tile_coords(Hp, th, tiles, img.device))
-    x0, x1, fx = (a[None, :] for a in _tile_coords(Wp, tw, tiles, img.device))
+    H, W = img.shape
+    y0, y1, fy = (a[:, None] for a in _tile_coords(H, th, tiles, img.device))
+    x0, x1, fx = (a[None, :] for a in _tile_coords(W, tw, tiles, img.device))
     flat = luts.reshape(-1)
     v = img.long()
 
@@ -75,23 +122,23 @@ def clahe_apply_reference(img: torch.Tensor, luts: torch.Tensor, th: int, tw: in
     return torch.round(res).clamp(0, 255).to(torch.uint8)
 
 
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument and result types of a built ``clahe.cu`` library."""
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    for fn, args in (
+        (lib.cbv_clahe_hist, [P, I, I, I, I, I, P, P, I, F, P]),
+        (lib.cbv_clahe_apply, [P, P, P, I, I, F, F, I, P]),
+    ):
+        fn.argtypes, fn.restype = args, I
+    lib.cbv_cuda_error_string.argtypes = [I]
+    lib.cbv_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
-        lib = load("clahe")
-        lib.cbv_clahe_hist.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p,
-        ]
-        lib.cbv_clahe_hist.restype = ctypes.c_int
-        lib.cbv_clahe_apply.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-        ]
-        lib.cbv_clahe_apply.restype = ctypes.c_int
-        lib.cbv_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.cbv_cuda_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        _lib = bind(load("clahe"))
     return _lib
 
 
@@ -105,35 +152,60 @@ def _require_cuda(t: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what}: tensor on {t.device}, expected CPU or CUDA")
 
 
-def clahe_hist(img: torch.Tensor, th: int, tw: int, tiles: int) -> torch.Tensor:
-    """Per-tile 256-bin histograms of a padded (th*tiles, tw*tiles) u8
-    image -> (tiles^2, 256) i32."""
-    if img.device.type == "cpu":
-        return clahe_hist_reference(img, th, tw, tiles)
-    _require_cuda(img, "clahe_hist")
-    _check_padded(img, th, tw, tiles, "clahe_hist")
+def _launch_hist(img: torch.Tensor, th: int, tw: int, tiles: int, clip_abs: int | None,
+                 what: str):
+    """One histogram launch: hist, and the LUTs unless clip_abs is None."""
+    _require_cuda(img, what)
+    _check_tiled(img, th, tw, tiles, what)
     img = img.contiguous()
     lib = _library()
-    hist = torch.empty((tiles * tiles, 256), dtype=torch.int32, device=img.device)
+    n = tiles * tiles
+    hist = torch.empty((n, 256), dtype=torch.int32, device=img.device)
+    luts = None if clip_abs is None else torch.empty((n, 256), dtype=torch.float32,
+                                                     device=img.device)
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.cbv_clahe_hist(img.data_ptr(), hist.data_ptr(), img.shape[1], th, tw, tiles,
-                                stream)
-    _raise_if(rc, lib, "clahe_hist")
+        rc = lib.cbv_clahe_hist(
+            img.data_ptr(), img.shape[0], img.shape[1], th, tw, tiles,
+            hist.data_ptr(), None if luts is None else luts.data_ptr(),
+            0 if clip_abs is None else int(clip_abs), _lut_scale(th * tw), stream,
+        )
+    _raise_if(rc, lib, what)
+    return hist, luts
+
+
+def clahe_hist(img: torch.Tensor, th: int, tw: int, tiles: int) -> torch.Tensor:
+    """Per-tile 256-bin histograms of the reflect pad of an (H, W) u8
+    plane -> (tiles^2, 256) i32."""
+    if img.device.type == "cpu":
+        return clahe_hist_reference(img, th, tw, tiles)
+    hist, _ = _launch_hist(img, th, tw, tiles, None, "clahe_hist")
     clahe_hist.launches += 1
     return hist
 
 
+def clahe_hist_luts(img: torch.Tensor, th: int, tw: int, tiles: int,
+                    clip_abs: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """CLAHE's histogram and LUT phases in one launch: the reflect pad's
+    (tiles^2, 256) i32 histograms and the (tiles^2, 256) f32 LUTs that
+    ``clahe_luts_from_hist(hist, th * tw, clip_abs)`` builds from them."""
+    if img.device.type == "cpu":
+        return clahe_hist_luts_reference(img, th, tw, tiles, clip_abs)
+    out = _launch_hist(img, th, tw, tiles, clip_abs, "clahe_hist_luts")
+    clahe_hist_luts.launches += 1
+    return out
+
+
 def clahe_apply(img: torch.Tensor, luts: torch.Tensor, th: int, tw: int,
                 tiles: int) -> torch.Tensor:
-    """CLAHE's per-pixel LUT mix on a padded (th*tiles, tw*tiles) u8 image
-    with (tiles^2, 256) f32 integer-valued LUTs -> u8 of the same shape."""
+    """CLAHE's per-pixel LUT mix on an (H, W) u8 plane (padded or not) with
+    (tiles^2, 256) f32 integer-valued LUTs -> u8 of the same shape."""
     if img.device.type == "cpu" and luts.device.type == "cpu":
         return clahe_apply_reference(img, luts, th, tw, tiles)
     _require_cuda(img, "clahe_apply")
     if img.device != luts.device:
         raise ValueError(f"clahe_apply: image on {img.device}, luts on {luts.device}")
-    _check_padded(img, th, tw, tiles, "clahe_apply")
+    _check_tiled(img, th, tw, tiles, "clahe_apply")
     if luts.dtype != torch.float32 or tuple(luts.shape) != (tiles * tiles, 256):
         raise ValueError(f"clahe_apply: luts must be ({tiles * tiles}, 256) float32, got "
                          f"{tuple(luts.shape)} {luts.dtype}")
@@ -143,12 +215,12 @@ def clahe_apply(img: torch.Tensor, luts: torch.Tensor, th: int, tw: int,
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.cbv_clahe_apply(img.data_ptr(), luts.data_ptr(), out.data_ptr(),
-                                 img.shape[0], img.shape[1], th, _inv(th), _inv(tw), tiles,
-                                 stream)
+                                 img.shape[0], img.shape[1], _inv(th), _inv(tw), tiles, stream)
     _raise_if(rc, lib, "clahe_apply")
     clahe_apply.launches += 1
     return out
 
 
 clahe_hist.launches = 0
+clahe_hist_luts.launches = 0
 clahe_apply.launches = 0

@@ -79,10 +79,12 @@ def outputs_to_numpy(out: StepOutputs) -> StepOutputs:
     )
 
 
-def state_from_numpy(tree, device="cpu") -> PipelineState:
+def state_from_numpy(tree, device="cuda") -> PipelineState:
     """A PipelineState-shaped tree of arrays (e.g. the JAX package's state,
-    leaves through ``np.asarray``) -> the port's state on ``device``.
-    Leaves are matched by field name."""
+    leaves through ``np.asarray``) -> the port's state on ``device`` (the
+    card unless the caller asks for the CPU). Leaves are matched by field
+    name."""
+    device = resolve_device(device, "state_from_numpy")
 
     def conv(cls, node):
         return cls(

@@ -29,10 +29,14 @@ the last line:
      on the card.
    B1's and B2's lines give their device time beside that of the kernels'
    earlier designs and the share of the bound it reaches.
-   - B3 CLAHE histograms on the (984, 984) Lab-L pad of that board and on a
-     th < 8 image: bit-equal.
-   - B4 CLAHE LUT apply on the (984, 984) pad with its real LUTs, and on the
-     th < 8 image: bit-equal.
+   - B3 CLAHE histograms of the reflect pad with the LUTs built from them,
+     one launch, on the unpadded (980, 980) Lab-L of that board, on a th < 8
+     image and on a constant (980, 980) image: bit-equal to the plain
+     version (pad, bincount, torch LUT ops), two launches bit-equal. The
+     torch LUT phase that the fused epilogue replaced is timed once.
+   - B4 CLAHE LUT apply on the same three unpadded planes with their LUTs:
+     bit-equal, two launches bit-equal.
+   B3's and B4's lines give their time beside their earlier designs' too.
 4. plain path: VisionPipeline(device="cuda") on rendered 1920x1080 frames
    of the benchmark's board layout: a clean frame's occupancy equals the
    rendered truth; step_many over 64 frames equals 64 sequential steps
@@ -44,7 +48,8 @@ the last line:
 
 Kernel launch counts are set to 0 just before each path and read just
 after it: the plain path must launch B1 and none of B2-B4, the enhanced
-path all four; B1's 1080p launches must take the TMA kernel. The line before the last is the kernels' JSON record; the
+path all four, with exactly one B3 (histograms + LUTs) and one B4 launch
+per CLAHE call; B1's 1080p launches must take the TMA kernel. The line before the last is the kernels' JSON record; the
 last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -91,7 +96,7 @@ BILATERAL_FLOPS_PER_TAP = 15
 BILATERAL_TAPS = 49  # the d=9 disk: dx^2 + dy^2 <= 16
 # Device us per call of the designs before this one (chip_smoke, NVIDIA
 # H100 80GB HBM3, 700 W): the lines print the new time beside them.
-EARLIER_US = {"score_matmul": 64.6, "bilateral": 51.7}
+EARLIER_US = {"score_matmul": 64.6, "bilateral": 51.7, "clahe_hist": 7.2, "clahe_apply": 11.1}
 L2_FLUSH_BYTES = 200 * 2**20  # four times the 50 MB L2
 
 
@@ -320,30 +325,37 @@ def enhancement_kernels_phase(pipe, frame, smi):
                         max_abs_err=bil_err, ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                         bound_by=bound_by, library_ms=None))
 
-    # B3/B4 on the Lab-L reflect pad of the board (984 x 984, th = 123) and
-    # on a th < 8 image (40 x 64 -> th = 5, tw = 8).
+    # B3/B4 on the unpadded Lab-L of the board (980 x 980, th = 123), on a
+    # th < 8 image (37 x 61 -> th = 5, tw = 8) and on a constant board-sized
+    # plane (every tile in one bin: the atomics' worst case, the largest
+    # clip excess).
     tiles = 8
     lab_l = planar_bgr2lab(board)[0]
-    th, tw = -(-H // tiles), -(-W // tiles)
-    pad = tenh._reflect_pad_end(lab_l, th * tiles, tw * tiles)
-    small = torch.randint(0, 256, (40, 64), device=DEVICE, generator=g, dtype=torch.uint8)
-    cases = (("board", pad, th, tw), ("th<8", small, 5, 8))
-    luts = {}
-    for label, img, a, b in cases:
-        hist = kc.clahe_hist(img, a, b, tiles)
+    small = torch.randint(0, 256, (37, 61), device=DEVICE, generator=g, dtype=torch.uint8)
+    flat = torch.full_like(lab_l, 77)
+    for label, img in (("board", lab_l), ("th<8", small), ("constant", flat)):
+        h, w = img.shape
+        a, b = -(-h // tiles), -(-w // tiles)
+        clip = max(int(3.0 * a * b / 256), 1)
+        got, again = kc.clahe_hist_luts(img, a, b, tiles, clip), kc.clahe_hist_luts(
+            img, a, b, tiles, clip)
+        want = kc.clahe_hist_luts_reference(img, a, b, tiles, clip)
+        out, out2 = (kc.clahe_apply(img, got[1], a, b, tiles) for _ in range(2))
         torch.cuda.synchronize()
-        check(torch.equal(hist, kc.clahe_hist_reference(img, a, b, tiles)),
-              f"clahe_hist {label}: kernel differs from plain")
-        area = a * b
-        luts[label] = tenh.clahe_luts_from_hist(hist, area, max(int(3.0 * area / 256), 1))
-        out = kc.clahe_apply(img, luts[label], a, b, tiles)
-        torch.cuda.synchronize()
-        check(torch.equal(out, kc.clahe_apply_reference(img, luts[label], a, b, tiles)),
+        for i, what in enumerate(("histograms", "LUTs")):
+            check(torch.equal(got[i], want[i]), f"clahe_hist_luts {label}: {what} differ from plain")
+            check(torch.equal(got[i], again[i]), f"clahe_hist_luts {label}: two launches differ")
+        check(torch.equal(out, kc.clahe_apply_reference(img, want[1], a, b, tiles)),
               f"clahe_apply {label}: kernel differs from plain")
-        phase("kernel", f"clahe_hist and clahe_apply {label} {tuple(img.shape)} th={a}: "
-              "bit-equal to plain")
-    Hp, Wp = pad.shape
+        check(torch.equal(out, out2), f"clahe_apply {label}: two launches differ")
+        phase("kernel", f"clahe_hist_luts and clahe_apply {label} {tuple(img.shape)} th={a} "
+              f"tw={b}: bit-equal to plain, two launches of each bit-equal")
+    H, W = lab_l.shape
+    th, tw = -(-H // tiles), -(-W // tiles)
+    clip = max(int(3.0 * th * tw / 256), 1)
+    Hp, Wp = th * tiles, tw * tiles
     n_lut = tiles * tiles * 256
+    pad = kc.reflect_pad_end(lab_l, Hp, Wp)
 
     def bincount():  # the library call: one bincount of tile * 256 + value keys
         ty = torch.arange(Hp, device=DEVICE) // th
@@ -352,28 +364,34 @@ def enhancement_kernels_phase(pipe, frame, smi):
         return torch.bincount(keys.reshape(-1), minlength=n_lut)
 
     kernel_ms, plain_ms, event_ms = kernel_vs_plain_ms(
-        lambda: kc.clahe_hist(pad, th, tw, tiles),
-        lambda: kc.clahe_hist_reference(pad, th, tw, tiles), 200)
+        lambda: kc.clahe_hist_luts(lab_l, th, tw, tiles, clip),
+        lambda: kc.clahe_hist_luts_reference(lab_l, th, tw, tiles, clip), 200)
     library_ms = device_ms(bincount, 200)
-    bound_ms, bound_by = bound(Hp * Wp + 4 * n_lut, Hp * Wp, F32_FLOPS)
-    phase("kernel", f"clahe_hist device {kernel_ms * 1e3:.1f} us/call (CUDA events "
-          f"{event_ms * 1e3:.1f} us), plain {plain_ms * 1e3:.1f} us, torch.bincount (keys built "
-          f"in the call) {library_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.2f} us ({bound_by}) "
-          f"on {smi}")
+    hist_only_ms = device_ms(lambda: kc.clahe_hist(lab_l, th, tw, tiles), 200)
+    hist, lut = kc.clahe_hist_luts(lab_l, th, tw, tiles, clip)
+    lut_phase_ms = device_ms(lambda: kc.clahe_luts_from_hist(hist, th * tw, clip), 200)
+    # Bytes: the plane read once, the i32 histograms and f32 LUTs written;
+    # operations: one count per padded pixel.
+    bound_ms, bound_by = bound(H * W + 8 * n_lut, Hp * Wp, F32_FLOPS)
+    phase("kernel", f"{share('clahe_hist', bound_ms, kernel_ms)} with its LUT epilogue (the "
+          f"earlier design counted only; CUDA events {event_ms * 1e3:.1f} us), the same kernel "
+          f"without the epilogue (clahe_hist) {hist_only_ms * 1e3:.1f} us, plain (pad + bincount "
+          f"+ LUT ops) {plain_ms * 1e3:.1f} us, torch.bincount of the pad's keys (keys built in "
+          f"the call) {library_ms * 1e3:.1f} us, the torch LUT phase the epilogue replaced "
+          f"{lut_phase_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.2f} us ({bound_by}) on {smi}")
     records.append(dict(name="clahe_hist", route="cuda",
                         source="chessboard_vision_tpu_torch/kernels/clahe.cu",
                         replaces="chessboard_vision_tpu/ops/pallas/clahe_apply.py:148",
                         max_abs_err=0, ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                         bound_by=bound_by, library_ms=library_ms))
 
-    lut = luts["board"]
     kernel_ms, plain_ms, event_ms = kernel_vs_plain_ms(
-        lambda: kc.clahe_apply(pad, lut, th, tw, tiles),
-        lambda: kc.clahe_apply_reference(pad, lut, th, tw, tiles), 200)
+        lambda: kc.clahe_apply(lab_l, lut, th, tw, tiles),
+        lambda: kc.clahe_apply_reference(lab_l, lut, th, tw, tiles), 200)
     # ~10 f32 operations a pixel: the two tile coordinates' fma, fraction
     # and weights, two blends of two terms, the column sum, the round.
-    bound_ms, bound_by = bound(2 * Hp * Wp + 4 * n_lut, 10 * Hp * Wp, F32_FLOPS)
-    phase("kernel", f"clahe_apply device {kernel_ms * 1e3:.1f} us/call (CUDA events "
+    bound_ms, bound_by = bound(2 * H * W + 4 * n_lut, 10 * H * W, F32_FLOPS)
+    phase("kernel", f"{share('clahe_apply', bound_ms, kernel_ms)} (CUDA events "
           f"{event_ms * 1e3:.1f} us), plain {plain_ms * 1e3:.1f} us, bound "
           f"{bound_ms * 1e3:.2f} us ({bound_by}), no library call, on {smi}")
     records.append(dict(name="clahe_apply", route="cuda",
@@ -479,19 +497,36 @@ COUNTERS = {
     "score_matmul": sm.score_matmul,
     "bilateral": kb.bilateral_planar,
     "clahe_hist": kc.clahe_hist,
+    "clahe_hist_luts": kc.clahe_hist_luts,
     "clahe_apply": kc.clahe_apply,
 }
+# The path's wrapper of each kernel of the JSON record, where the names
+# differ: the path reaches B3's kernel through clahe_hist_luts.
+PATH_WRAPPER = {"clahe_hist": "clahe_hist_luts"}
 
 
 def run_path(label, use_enhancer, corners, camera, rng, chunk, smi):
     """Drive one path (pipeline, then session) with every count set to 0
-    just before it; returns the counts read just after it."""
+    just before it; returns the counts read just after it, with the path's
+    CLAHE calls under "clahe_calls"."""
     session = calibrated_session(corners, (WIDTH, HEIGHT), DEVICE, use_enhancer=use_enhancer)
-    for fn in COUNTERS.values():
-        fn.launches = 0
-    pipeline_phase(session, camera, rng, chunk, label, smi)
-    session_phase(corners, camera, rng, label, use_enhancer)
-    counts = {name: fn.launches for name, fn in COUNTERS.items()}
+    clahe = tenh.clahe
+    calls = [0]
+
+    def counted_clahe(*args, **kwargs):
+        calls[0] += 1
+        return clahe(*args, **kwargs)
+
+    tenh.clahe = counted_clahe  # the enhancer looks it up on the module at each call
+    try:
+        for fn in COUNTERS.values():
+            fn.launches = 0
+        pipeline_phase(session, camera, rng, chunk, label, smi)
+        session_phase(corners, camera, rng, label, use_enhancer)
+        counts = {name: fn.launches for name, fn in COUNTERS.items()}
+    finally:
+        tenh.clahe = clahe
+    counts["clahe_calls"] = calls[0]
     phase(label, f"kernel launches on this path: {counts}")
     return counts
 
@@ -518,14 +553,22 @@ def main():
     check(plain["score_matmul"] > 0, "the plain path never launched score_matmul")
     check(sm.score_matmul.last_path == "tma",
           f"the plain path's score_matmul took the {sm.score_matmul.last_path} kernel")
-    check(not any(plain[k] for k in ("bilateral", "clahe_hist", "clahe_apply")),
+    check(not any(plain[k] for k in COUNTERS if k != "score_matmul"),
           "the plain path launched an enhancement kernel")
     enhanced = run_path("enhanced", True, corners, camera, rng, ENHANCED_CHUNK, smi)
-    missing = [k for k, n in enhanced.items() if n == 0]
+    missing = [k for k in COUNTERS if k != "clahe_hist" and enhanced[k] == 0]
     check(not missing, f"the enhanced path never launched {missing}")
+    n = enhanced["clahe_calls"]
+    check(enhanced["clahe_hist_luts"] == n and enhanced["clahe_apply"] == n
+          and enhanced["clahe_hist"] == 0,
+          f"the enhanced path's {n} CLAHE calls made {enhanced['clahe_hist_luts']} B3 "
+          f"(histograms + LUTs), {enhanced['clahe_hist']} histogram-only and "
+          f"{enhanced['clahe_apply']} B4 launches, not one B3 and one B4 each")
+    phase("enhanced", f"{n} CLAHE calls, each one B3 and one B4 launch")
 
     for rec in records:
-        rec["launches"] = plain[rec["name"]] + enhanced[rec["name"]]
+        w = PATH_WRAPPER.get(rec["name"], rec["name"])
+        rec["launches"] = plain[w] + enhanced[w]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: rec[k] for k in keys} for rec in records]}), flush=True)

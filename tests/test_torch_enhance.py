@@ -241,13 +241,38 @@ def test_clahe_hist_plain_vs_pallas(h, w, tiles, version):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("h,w,tiles,version", [
+    (980, 980, 8, "v3"), (77, 90, 8, "v3"), (40, 64, 8, "v1"), (50, 33, 4, "v1"),
+])
+def test_clahe_hist_luts_plain_vs_pallas_chain(h, w, tiles, version):
+    """The fused histogram + LUT phase on the unpadded plane equals the JAX
+    chain clahe_luts_from_hist(Pallas histograms of jnp.pad(img, "reflect")),
+    both outputs bit for bit. 980 is the 1080p board; th < 8 and 4x4 tiles
+    take the JAX package's v1 fallback."""
+    img = np.random.default_rng(h * w + tiles).integers(0, 256, (h, w), np.uint8)
+    th, tw = -(-h // tiles), -(-w // tiles)
+    area = th * tw
+    clip_abs = max(int(3.0 * area / 256), 1)
+    pad = jnp.pad(img, ((0, th * tiles - h), (0, tw * tiles - w)), mode="reflect")
+    with pltpu.force_tpu_interpret_mode():
+        if version == "v3":
+            jhist = jca.clahe_hist_pallas_v3(pad, th, tw, tiles, band=16 if th >= 16 else 8)
+        else:
+            jhist = jca.clahe_hist_pallas(pad, th, tw, tiles)
+    jluts = jax.jit(jenh.clahe_luts_from_hist, static_argnums=(1, 2))(jhist, area, clip_abs)
+    hist, luts = tclahe.clahe_hist_luts(_t(img), th, tw, tiles, clip_abs)
+    np.testing.assert_array_equal(hist.numpy(), np.asarray(jhist))
+    np.testing.assert_array_equal(luts.numpy(), np.asarray(jluts))
+
+
 @pytest.mark.parametrize("h,w,version", [
     (160, 160, "v2"), (77, 90, "v2"), (160, 160, "v1"), (40, 64, "v1"), (620, 620, "v2"),
 ])
 def test_clahe_luts_and_apply_plain_vs_pallas(h, w, version):
     """The LUTs from the same histograms are equal, and the apply's u8
     output is bit-equal to the Pallas kernel's (v2 needs th >= 8; v1 is
-    the JAX package's fallback below that). 620 is the 720p board."""
+    the JAX package's fallback below that), on the pad and, cropped, on the
+    unpadded plane. 620 is the 720p board."""
     tiles = 8
     pad, th, tw = _padded(h, w, tiles, h + w)
     hist = tclahe.clahe_hist(_t(pad), th, tw, tiles)
@@ -260,11 +285,15 @@ def test_clahe_luts_and_apply_plain_vs_pallas(h, w, version):
         fn = jca.clahe_apply_pallas_v2 if version == "v2" else jca.clahe_apply_pallas
         want = np.asarray(fn(pad, jluts, th, tw, tiles))
     np.testing.assert_array_equal(tclahe.clahe_apply(_t(pad), luts, th, tw, tiles).numpy(), want)
+    np.testing.assert_array_equal(
+        tclahe.clahe_apply(_t(pad[:h, :w]), luts, th, tw, tiles).numpy(), want[:h, :w]
+    )
 
 
 def test_clahe_vs_pallas_backend():
-    """The port's clahe (pad, hist, LUTs, apply, crop) equals the JAX
-    package's clahe(backend='pallas') on a non-square image."""
+    """The port's clahe (histograms with LUTs, then the apply, both on the
+    unpadded plane) equals the JAX package's clahe(backend='pallas') on a
+    non-square image."""
     img = np.random.default_rng(5).integers(0, 256, (61, 83), np.uint8)
     with pltpu.force_tpu_interpret_mode():
         want = np.asarray(jenh.clahe(img, 3.0, 8, backend="pallas"))
@@ -273,17 +302,21 @@ def test_clahe_vs_pallas_backend():
 
 def test_kernel_wrappers_refuse_other_devices_and_count_nothing_on_cpu():
     img = torch.zeros((3, 16, 16), dtype=torch.uint8)
-    before = (tbil.bilateral_planar.launches, tclahe.clahe_hist.launches,
-              tclahe.clahe_apply.launches)
+    counters = (tbil.bilateral_planar, tclahe.clahe_hist, tclahe.clahe_hist_luts,
+                tclahe.clahe_apply)
+    before = [c.launches for c in counters]
     tbil.bilateral_planar(img)
     luts = tenh.clahe_luts_from_hist(tclahe.clahe_hist(img[0], 2, 2, 8), 4, 1)
+    _, luts2 = tclahe.clahe_hist_luts(img[0], 2, 2, 8, 1)
+    assert torch.equal(luts, luts2)
     tclahe.clahe_apply(img[0], luts, 2, 2, 8)
-    assert (tbil.bilateral_planar.launches, tclahe.clahe_hist.launches,
-            tclahe.clahe_apply.launches) == before
+    assert [c.launches for c in counters] == before
     with pytest.raises(ValueError, match="expected CPU or CUDA"):
         tbil.bilateral_planar(img.to("meta"))
     with pytest.raises(ValueError, match="expected CPU or CUDA"):
         tclahe.clahe_hist(img[0].to("meta"), 2, 2, 8)
+    with pytest.raises(ValueError, match="expected CPU or CUDA"):
+        tclahe.clahe_hist_luts(img[0].to("meta"), 2, 2, 8, 1)
 
 
 # ---------------------------------------------------------------------------

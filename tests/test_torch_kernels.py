@@ -231,6 +231,82 @@ def test_clahe_apply_kernel_bit_equal(cuda, h, w, tiles):
     assert torch.equal(got, kc.clahe_apply_reference(img, luts, th, tw, tiles))
 
 
+# Unpadded planes: the 1080p board (980 = 4 * 245: 4-byte rows, not 16),
+# widths that are not a multiple of 4, th < 8, 4x4 tiles, and a plane
+# padded by 7 rows and 1 column.
+UNPADDED_SHAPES = [(980, 980, 8), (77, 90, 8), (61, 83, 8), (37, 1001, 8), (50, 33, 4),
+                   (977, 983, 8)]
+# (h, w, tiles, constant value or None for random u8): the padded shapes,
+# the unpadded ones, and constant planes (every pixel of a tile in one bin:
+# the worst case for the atomics and the largest clip excess).
+HIST_LUT_CASES = ([(h, w, t, None) for h, w, t in dict.fromkeys(CLAHE_SHAPES + UNPADDED_SHAPES)]
+                  + [(980, 980, 8, 77), (40, 64, 8, 255), (50, 33, 4, 0)])
+
+
+def _plane(cuda, h, w, seed, constant=None):
+    if constant is not None:
+        return torch.full((h, w), constant, dtype=torch.uint8, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return torch.randint(0, 256, (h, w), device=cuda, generator=g, dtype=torch.uint8)
+
+
+@pytest.mark.parametrize("h,w,tiles,constant", HIST_LUT_CASES)
+def test_clahe_hist_luts_kernel_bit_equal(cuda, h, w, tiles, constant):
+    """Histograms of the reflect pad and the LUTs built from them in one
+    launch, bit-equal to the plain version (pad, bincount, torch LUT ops);
+    a second launch gives the same bits."""
+    img = _plane(cuda, h, w, h + 3 * w, constant)
+    th, tw = -(-h // tiles), -(-w // tiles)
+    clip = max(int(3.0 * th * tw / 256), 1)
+    before = kc.clahe_hist_luts.launches
+    hist, luts = kc.clahe_hist_luts(img, th, tw, tiles, clip)
+    again = kc.clahe_hist_luts(img, th, tw, tiles, clip)
+    torch.cuda.synchronize()
+    assert kc.clahe_hist_luts.launches == before + 2
+    want_hist, want_luts = kc.clahe_hist_luts_reference(img, th, tw, tiles, clip)
+    assert torch.equal(hist, want_hist)
+    assert torch.equal(luts, want_luts)
+    assert torch.equal(again[0], hist) and torch.equal(again[1], luts)
+
+
+def test_clahe_hist_calls_in_a_row_each_equal_plain(cuda):
+    """Calls in a row on other planes and tile grids (4x4, then 8x8, then
+    4x4 tiles) each equal their plain version, the histogram-only wrapper
+    included: no launch leaves state that the next one reads."""
+    for h, w, tiles, seed in ((50, 33, 4, 1), (980, 980, 8, 2), (61, 83, 8, 3), (50, 33, 4, 4)):
+        img = _plane(cuda, h, w, seed)
+        th, tw = -(-h // tiles), -(-w // tiles)
+        hist, luts = kc.clahe_hist_luts(img, th, tw, tiles, 5)
+        only = kc.clahe_hist(img, th, tw, tiles)
+        torch.cuda.synchronize()
+        want_hist, want_luts = kc.clahe_hist_luts_reference(img, th, tw, tiles, 5)
+        assert torch.equal(hist, want_hist) and torch.equal(only, want_hist)
+        assert torch.equal(luts, want_luts)
+
+
+@pytest.mark.parametrize("h,w,tiles", UNPADDED_SHAPES)
+def test_clahe_apply_kernel_unpadded(cuda, h, w, tiles):
+    """The apply on the unpadded plane equals its plain version and the
+    apply on the reflect pad, cropped; a plane one byte into its storage
+    takes the byte path with the same result."""
+    img = _plane(cuda, h, w, h * w)
+    th, tw = -(-h // tiles), -(-w // tiles)
+    _, luts = kc.clahe_hist_luts(img, th, tw, tiles, max(int(3.0 * th * tw / 256), 1))
+    got = kc.clahe_apply(img, luts, th, tw, tiles)
+    pad = kc.reflect_pad_end(img, th * tiles, tw * tiles)
+    cropped = kc.clahe_apply(pad, luts, th, tw, tiles)[:h, :w]
+    flat = torch.empty(h * w + 1, dtype=torch.uint8, device=cuda)
+    shifted = flat[1:].view(h, w)
+    shifted.copy_(img)
+    assert shifted.data_ptr() % 4 != 0
+    off = kc.clahe_apply(shifted, luts, th, tw, tiles)
+    torch.cuda.synchronize()
+    assert got.shape == (h, w)
+    assert torch.equal(got, kc.clahe_apply_reference(img, luts, th, tw, tiles))
+    assert torch.equal(got, cropped)
+    assert torch.equal(off, got)
+
+
 def test_enhancement_kernels_refuse_bad_inputs(cuda):
     img = torch.zeros((3, 32, 32), dtype=torch.uint8, device=cuda)
     with pytest.raises(ValueError, match="uint8"):
@@ -243,6 +319,14 @@ def test_enhancement_kernels_refuse_bad_inputs(cuda):
         kc.clahe_apply(img[0], torch.zeros((64, 256), device=cuda, dtype=torch.int32), 4, 4, 8)
     with pytest.raises(ValueError, match="luts on cpu"):
         kc.clahe_apply(img[0], torch.zeros((64, 256)), 4, 4, 8)
+    with pytest.raises(ValueError, match="tiles"):
+        kc.clahe_hist_luts(img[0], 3, 4, 8, 1)
+    with pytest.raises(ValueError, match="tiles"):  # 7 * 5 rows of tiles before row 32
+        kc.clahe_hist_luts(img[0], 5, 4, 8, 1)
+    with pytest.raises(ValueError, match="tiles"):
+        kc.clahe_apply(img[0], torch.zeros((64, 256), device=cuda), 4, 5, 8)
+    with pytest.raises(ValueError, match="uint8"):
+        kc.clahe_hist_luts(img[0].float(), 4, 4, 8, 1)
 
 
 def test_enhanced_pipeline_on_card_matches_cpu(cuda):
@@ -255,7 +339,7 @@ def test_enhanced_pipeline_on_card_matches_cpu(cuda):
     rng = np.random.default_rng(4)
     occ = initial_occupancy()
     frames = [cam.render(occ, rng) for _ in range(3)]
-    counters = (sm.score_matmul, kb.bilateral_planar, kc.clahe_hist, kc.clahe_apply)
+    counters = (sm.score_matmul, kb.bilateral_planar, kc.clahe_hist_luts, kc.clahe_apply)
     before = [c.launches for c in counters]
     outs = {}
     for dev in ("cpu", "cuda"):

@@ -117,7 +117,7 @@ def test_state_from_numpy_mid_sequence(clip, pipes):
     for fr in frames[:5]:
         js, _ = jp.step(js, fr)
     host = jax.tree.map(np.asarray, js)
-    ts = tp.state_from_numpy(host)
+    ts = tp.state_from_numpy(host, device="cpu")
     for a, b in zip(jax.tree.leaves(tp.state_to_numpy(ts)), jax.tree.leaves(host)):
         np.testing.assert_array_equal(a, b)
     s2c = {(4, 1), (4, 3), (0, 0)}
@@ -136,7 +136,7 @@ def test_step_many_equals_sequential_steps(clip, pipes):
     chunk = frames[7:13]
     s2c = {(4, 1), (4, 3)}
     seq = tpipe.capture_reference(tpipe.init_state(), frame0)
-    many = tp.state_from_numpy(tp.state_to_numpy(seq))
+    many = tp.state_from_numpy(tp.state_to_numpy(seq), device="cpu")
     outs = []
     for i, fr in enumerate(chunk):
         seq, o = tpipe.step(seq, fr, squares_to_check=s2c, refresh_refs=i == 0)
@@ -174,6 +174,20 @@ def test_outputs_to_numpy_dtypes_and_unsupported_options(pipes):
     if not torch.cuda.is_available():  # the card is the default device
         with pytest.raises(RuntimeError, match="device='cpu'"):
             TorchPipeline(g)
+
+
+def test_state_from_numpy_defaults_to_the_card(pipes):
+    """state_from_numpy takes the entry points' default, the card: without
+    one it raises instead of building the state on the CPU in silence."""
+    _, tpipe = pipes
+    host = tp.state_to_numpy(tpipe.init_state())
+    on_cpu = tp.state_from_numpy(host, device="cpu")
+    assert all(t.device.type == "cpu" for part in on_cpu for t in part)
+    if torch.cuda.is_available():
+        assert all(t.device.type == "cuda" for part in tp.state_from_numpy(host) for t in part)
+    else:
+        with pytest.raises(RuntimeError, match="state_from_numpy.*device='cpu'"):
+            tp.state_from_numpy(host)
 
 
 # The enhanced squares' gray differs from the JAX package's on a few pixels
