@@ -5,8 +5,9 @@ plain version (the CPU tests run it), CUDA tensors launch a kernel or
 raise. Which kernel is decided by shape and alignment (``uses_tma``): the
 TMA + wgmma kernel where TMA can describe the operands, else the staged
 WMMA kernel. ``score_matmul.launches`` counts kernel launches, so a run can
-show that its main path went through a kernel, and ``score_matmul.last_path``
-names the kernel of the latest launch (``"tma"`` or ``"staged"``).
+show that its main path went through a kernel, ``score_matmul.last_path``
+names the kernel of the latest launch (``"tma"`` or ``"staged"``) and
+``score_matmul.last_shape`` gives its (M, N, K).
 """
 
 from __future__ import annotations
@@ -86,8 +87,10 @@ def score_matmul(basis: torch.Tensor, pf: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(f"score_matmul ({path}) launch failed: {msg} ({rc})")
     score_matmul.launches += 1
     score_matmul.last_path = path
+    score_matmul.last_shape = (M, N, K)
     return out
 
 
 score_matmul.launches = 0
 score_matmul.last_path = None
+score_matmul.last_shape = None

@@ -102,8 +102,8 @@ def detect_all(
     state: PieceState,
     gray: torch.Tensor,
     masks: piece_ops.PieceMasks,
-    s2c_mask: torch.Tensor,  # (64,) bool
-    s2c_given: torch.Tensor,  # () bool — whether squares_to_check was provided
+    s2c_mask: torch.Tensor,  # (n,) bool
+    s2c_given: torch.Tensor,  # () or (n,) bool: whether squares_to_check was provided
     conv_plan,
     conv_dims,
     hough_param1: int = 100,

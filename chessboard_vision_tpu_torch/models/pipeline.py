@@ -41,6 +41,18 @@ class PipelineState(NamedTuple):
     change: change_ops.ChangeModelState
 
 
+class StepConsts(NamedTuple):
+    """The per-square device constants the step core reads. A
+    VisionPipeline holds its 64 squares' (``VisionPipeline.consts``); the
+    stream-folded N-stream step passes them tiled to N*64 squares
+    (parallel/multistream.py)."""
+
+    dg: warp_ops.DeviceGeometry
+    masks: piece_ops.PieceMasks
+    conv_plan: hough_conv_ops.ConvHoughPlan
+    conv_dims: hough_conv_ops.ConvHoughDims
+
+
 class StepOutputs(NamedTuple):
     occupancy: torch.Tensor  # (64,) bool smoothed has_piece per square
     raw_occupancy: torch.Tensor  # (64,) bool
@@ -56,27 +68,29 @@ class StepOutputs(NamedTuple):
     profile_extent: torch.Tensor  # (64,) f32 ring-coverage size profile
 
 
-_OUTPUT_DTYPES = (
-    np.bool_, np.bool_, np.bool_, np.int32, np.float32, np.int32,
-    np.int32, np.float32, np.float32, np.float32, np.float32, np.float32,
-)
+_HOST_DTYPES = {torch.bool: np.bool_, torch.int32: np.int32, torch.float32: np.float32}
+
+
+def leaves_to_numpy(leaves) -> list:
+    """Device tensors of bool, i32 or f32 (any shapes) -> host numpy arrays,
+    in ONE D2H copy: every leaf is packed bit for bit into one int32 tensor
+    first."""
+    packed = torch.cat([
+        (x.view(torch.int32) if x.dtype == torch.float32 else x.to(torch.int32)).reshape(-1)
+        for x in leaves
+    ]).cpu().numpy()
+    host, at = [], 0
+    for x in leaves:
+        v = packed[at : at + x.numel()].reshape(tuple(x.shape))
+        at += x.numel()
+        dt = _HOST_DTYPES[x.dtype]
+        host.append(v.view(dt) if dt == np.float32 else v.astype(dt))
+    return host
 
 
 def outputs_to_numpy(out: StepOutputs) -> StepOutputs:
-    """Device StepOutputs (any leading shape) -> host numpy, in ONE D2H copy:
-    the 12 fields are packed bit for bit into one int32 tensor first."""
-    packed = torch.stack(
-        [
-            f.view(torch.int32) if f.dtype == torch.float32 else f.to(torch.int32)
-            for f in out
-        ]
-    ).cpu().numpy()
-    return StepOutputs(
-        *(
-            packed[i].view(np.float32) if dt == np.float32 else packed[i].astype(dt)
-            for i, dt in enumerate(_OUTPUT_DTYPES)
-        )
-    )
+    """Device StepOutputs (any leading shape) -> host numpy, in one D2H copy."""
+    return StepOutputs(*leaves_to_numpy(out))
 
 
 def state_from_numpy(tree, device="cuda") -> PipelineState:
@@ -138,7 +152,6 @@ class VisionPipeline:
             )
         self.hough_backend = hough_backend
         self.geometry = geometry
-        self.dg = warp_ops.DeviceGeometry.from_host(geometry, device=self.device)
         s = geometry.squares
         heights, widths = s.heights, s.widths
         self.H, self.W = int(heights.max()), int(widths.max())
@@ -149,13 +162,16 @@ class VisionPipeline:
                 min_ratio = piece_settings["min_radius"] / 100.0
             if "max_radius" in piece_settings:
                 max_ratio = piece_settings["max_radius"] / 100.0
-        self.masks = piece_ops.PieceMasks.build(
-            heights, widths, self.H, self.W, device=self.device
-        )
         # Bounded hysteresis (2 rounds) on the conv path, as in the JAX package.
-        self.conv_plan, self.conv_dims = hough_conv_ops.ConvHoughPlan.build(
+        conv_plan, conv_dims = hough_conv_ops.ConvHoughPlan.build(
             heights, widths, min_ratio=min_ratio, max_ratio=max_ratio,
             plane_h=self.H, plane_w=self.W, hysteresis_rounds=2, device=self.device,
+        )
+        self.consts = StepConsts(
+            dg=warp_ops.DeviceGeometry.from_host(geometry, device=self.device),
+            masks=piece_ops.PieceMasks.build(heights, widths, self.H, self.W, device=self.device),
+            conv_plan=conv_plan,
+            conv_dims=conv_dims,
         )
         self._pad = s.pad
         qx, qy = geometry.square_query_coords()
@@ -211,22 +227,28 @@ class VisionPipeline:
 
     # -- device functions ------------------------------------------------
 
-    def preprocess(self, frame: torch.Tensor):
-        """(3, Hf, Wf) planar u8 -> blurred gray squares (64, H, W) u8 for the
-        piece cascade and for the change model (the same tensor unless the
-        change model has its own blur kernel)."""
+    def preprocess(self, frames: torch.Tensor):
+        """(..., 3, Hf, Wf) planar u8, any leading stream axes -> blurred
+        gray squares (n, H, W) u8 for the piece cascade, 64 a frame in
+        stream-major order, and the change model's own-blur squares (None
+        when the change model shares the 5x5 blur)."""
         if self.with_enhancer:
-            board = mr.warp_board_color(frame, self._tile_plan, self._tile_dims, self._tile_index)
-            gray_padded = self._enhanced_board_squares(board)
+            boards = mr.warp_board_color(frames, self._tile_plan, self._tile_dims, self._tile_index)
+            squares = [self._enhanced_board_squares(b)
+                       for b in boards.reshape((-1,) + tuple(boards.shape[-3:]))]
+            gray_padded = squares[0] if len(squares) == 1 else torch.cat(squares)
         else:
-            gray_frame = planar_bgr2gray(frame)
-            gray_padded = mr.resample_gray_u8(gray_frame, self._mm_plan, self._mm_dims)
+            gray_padded = mr.resample_gray_u8(planar_bgr2gray(frames), self._mm_plan, self._mm_dims)
+            gray_padded = gray_padded.reshape((-1,) + tuple(gray_padded.shape[-2:]))
+        return self.blur(gray_padded)
+
+    def blur(self, gray_padded: torch.Tensor):
+        """Padded gray squares (n, H+2p, W+2p) u8 -> (the piece cascade's
+        5x5-blurred (n, H, W), the change model's own blur or None)."""
         gray = gaussian_blur_valid(gray_padded, 5, pad=self._pad)
-        if self.change_blur != 5:
-            gray_cd = gaussian_blur_valid(gray_padded, self.change_blur, pad=self._pad)
-        else:
-            gray_cd = gray
-        return gray, gray_cd
+        if self.change_blur == 5:
+            return gray, None
+        return gray, gaussian_blur_valid(gray_padded, self.change_blur, pad=self._pad)
 
     def _enhanced_board_squares(self, board: torch.Tensor) -> torch.Tensor:
         """Warped color board (3, B, B) u8 -> enhanced padded gray squares
@@ -236,22 +258,35 @@ class VisionPipeline:
 
     def _step_impl(self, state, frame, s2c_mask, s2c_given, refresh_refs):
         gray, gray_cd = self.preprocess(frame)
+        return self._step_core(
+            state, gray, s2c_mask, s2c_given, refresh_refs, self.consts, gray_change=gray_cd
+        )
+
+    def _step_core(self, state, gray, s2c_mask, s2c_given, refresh_refs, consts: StepConsts,
+                   gray_change=None):
+        """Everything after preprocessing: detection cascade, change model,
+        temporal state, on (n, H, W) squares with ``consts`` for the same n
+        squares. ``s2c_given`` and ``refresh_refs`` are () for the whole
+        board or (n,) per square (the stream-folded N-stream step, where
+        each stream's 64 squares carry that stream's flags).
+        ``gray_change`` is the change model's own-blur gray (None: gray)."""
         gray_flat = change_ops.flatten_pixels(gray)
         # Post-move forced re-reference, applied with this frame's gray.
+        refresh_px = refresh_refs if refresh_refs.dim() == 0 else refresh_refs[:, None]
         p = state.piece
         piece_in = p._replace(
-            ref_gray=torch.where(refresh_refs, gray_flat, p.ref_gray),
+            ref_gray=torch.where(refresh_px, gray_flat, p.ref_gray),
             has_ref=p.has_ref | refresh_refs,
             has_cache=p.has_cache & ~refresh_refs,
         )
         piece_state, det = pd_model.detect_all(
-            piece_in, gray, self.masks, s2c_mask, s2c_given,
-            self.conv_plan, self.conv_dims,
+            piece_in, gray, consts.masks, s2c_mask, s2c_given,
+            consts.conv_plan, consts.conv_dims,
             gray_flat=gray_flat, **self._det_kwargs,
         )
-        gcd = change_ops.flatten_pixels(gray_cd)
+        gcd = gray_flat if gray_change is None else change_ops.flatten_pixels(gray_change)
         cdet = change_ops.detect(
-            state.change, gcd, self.z_threshold, self.dg.sq_mask_flat, self.dg.sq_counts,
+            state.change, gcd, self.z_threshold, consts.dg.sq_mask_flat, consts.dg.sq_counts,
         )
         change_state = change_ops.update_references(
             state.change, gcd, self.alpha,
@@ -275,24 +310,12 @@ class VisionPipeline:
         return PipelineState(piece=piece_state, change=change_state), outputs
 
     def _upload(self, frames, s2c_mask: np.ndarray, flags) -> tuple:
-        """One H2D copy: host frame(s) (HWC camera layout or planar) become
-        planar u8 in one host buffer together with the (64,) square mask
-        and the flags; the buffer is page-locked on CUDA, so the copy is
-        asynchronous. Returns device views (planar frames, mask, flags)."""
-        frames = np.asarray(frames, np.uint8)
-        if frames.shape[-1] == 3:  # HWC camera layout -> planar view
-            frames = np.moveaxis(frames, -1, -3)
-        n = frames.size
-        host = torch.empty(
-            n + 64 + len(flags), dtype=torch.uint8,
-            pin_memory=self.device.type == "cuda",
+        """``upload`` of host frame(s) with the (64,) square mask and the
+        flags; returns device views (planar frames, mask, flags)."""
+        frames, packed = upload(
+            frames, np.concatenate([s2c_mask, np.asarray(flags, bool)]), self.device
         )
-        buf = host.numpy()
-        buf[:n].reshape(frames.shape)[...] = frames
-        buf[n : n + 64] = s2c_mask
-        buf[n + 64 :] = flags
-        t = host.to(self.device, non_blocking=True)
-        return t[:n].view(frames.shape), t[n : n + 64].bool(), t[n + 64 :].bool()
+        return frames, packed[:64], packed[64:]
 
     # -- host API --------------------------------------------------------
 
@@ -307,9 +330,12 @@ class VisionPipeline:
         """Set visual references from a frame (reference capture_reference,
         game_session.py:93-111) and calibrate the change model."""
         frame_dev, _, _ = self._upload(frame, np.zeros(64, bool), ())
-        gray, gray_cd = self.preprocess(frame_dev)
+        return self._capture_core(state, *self.preprocess(frame_dev))
+
+    def _capture_core(self, state: PipelineState, gray, gray_change=None) -> PipelineState:
         piece = pd_model.update_references(state.piece, gray)
-        change = change_ops.calibrate(gray_cd, self.initial_variance)
+        gcd = gray if gray_change is None else gray_change
+        change = change_ops.calibrate(gcd, self.initial_variance)
         return PipelineState(piece=piece, change=change)
 
     def step(
@@ -355,6 +381,25 @@ class VisionPipeline:
             )
             outs.append(out)
         return state, StepOutputs(*(torch.stack(f) for f in zip(*outs)))
+
+
+def upload(frames, flags: np.ndarray, device: torch.device) -> tuple:
+    """One H2D copy: host frames (HWC camera layout or planar u8, any
+    leading axes) become planar u8 in one host buffer together with the
+    bool array ``flags``; the buffer is page-locked on CUDA, so the copy is
+    asynchronous. Returns device views (planar frames, flags in their
+    shape)."""
+    frames = np.asarray(frames, np.uint8)
+    if frames.shape[-1] == 3:  # HWC camera layout -> planar view
+        frames = np.moveaxis(frames, -1, -3)
+    flags = np.asarray(flags, bool)
+    n = frames.size
+    host = torch.empty(n + flags.size, dtype=torch.uint8, pin_memory=device.type == "cuda")
+    buf = host.numpy()
+    buf[:n].reshape(frames.shape)[...] = frames
+    buf[n:] = flags.reshape(-1)
+    t = host.to(device, non_blocking=True)
+    return t[:n].view(frames.shape), t[n:].bool().view(flags.shape)
 
 
 def occupancy_to_set(occ) -> set:

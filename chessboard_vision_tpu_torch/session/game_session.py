@@ -9,9 +9,13 @@ ambiguity rejection, and the ``on_move_detected`` subclass hook.
 ``board_lock`` (RLock) is held across inference and push, as in the
 reference.
 
+``save_checkpoint``/``resume_checkpoint`` snapshot the session mid-game
+in the JAX package's checkpoint format (utils/checkpoint.py), so a
+checkpoint of either package resumes in the other.
+
 Not ported yet (ROADMAP.md Queue A): drift re-calibration, the renderer/UI
-overlay, checkpoint/resume, piece-type classification, the frame-counted
-cooldown of recorded sources and the reference's visual-rank scan quirk.
+overlay, piece-type classification, the frame-counted cooldown of recorded
+sources and the reference's visual-rank scan quirk.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from chessboard_vision_tpu_torch.utils.config import (
     SENSITIVITY_FILE,
     load_json_config,
 )
+from chessboard_vision_tpu_torch.utils.checkpoint import load_tree, read_meta, save_tree
 from chessboard_vision_tpu_torch.utils.logging import get_logger
 from chessboard_vision_tpu_torch.models.pipeline import (
     VisionPipeline,
@@ -51,6 +56,7 @@ class GameSession:
         self.device = resolve_device(device, "GameSession")
         self.board_lock = threading.RLock()
 
+        self.config: Optional[dict] = None
         self.pipeline: Optional[VisionPipeline] = None
         self.pipe_state = None
         self.game: Optional[GameState] = None
@@ -81,6 +87,7 @@ class GameSession:
         ``"use_enhancer": true`` puts the 5-stage enhancement ahead of
         detection in the same step, with the color profile of
         ``config["enhancer_profile"]`` or, failing that, color_profile.json."""
+        self.config = config
         self.player_color = config.get("player_color")
         geometry = geo.BoardGeometry.from_config(config)
         use_enhancer = bool(config.get("use_enhancer", False))
@@ -187,6 +194,62 @@ class GameSession:
     def on_move_detected(self, move) -> bool:
         """Subclass hook; True accepts the move locally."""
         return True
+
+    # -- checkpoint / resume ---------------------------------------------
+
+    def save_checkpoint(self, path: str):
+        """Snapshot the session mid-game: the pipeline's device state
+        (visual references, EMA background model, detection history) and
+        the host state (board FEN, noise FSM, stability gate, config)."""
+        with self.board_lock:
+            meta = {
+                "fen": self.game.get_fen(),
+                "config": self.config,
+                "frame_count": self.frame_count,
+                "stable_count": self.stable_count,
+                "stable_occupancy": (
+                    sorted(self.stable_occupancy)
+                    if self.stable_occupancy is not None
+                    else None
+                ),
+                "noise": {
+                    "state": self.noise.state.name,
+                    "stable_count": self.noise.stable_count,
+                    "cooldown_count": self.noise.cooldown_count,
+                    "pending_squares": sorted(self.noise.pending_squares),
+                    "last_lifted_square": self.noise.last_lifted_square,
+                },
+            }
+            save_tree(path, self.pipe_state, meta)
+        self.log.info("checkpoint saved: %s", path)
+
+    def resume_checkpoint(self, path: str) -> dict:
+        """Restore a save_checkpoint snapshot, building the pipeline from
+        the stored config when this session is not configured yet."""
+        if self.pipeline is None:
+            self.configure(read_meta(path)["config"])
+        with self.board_lock:
+            self.pipe_state, meta = load_tree(path, self.pipeline.init_state(), self.device)
+            self.game.set_fen(meta["fen"])
+            self.frame_count = meta["frame_count"]
+            self.stable_count = meta["stable_count"]
+            self.stable_occupancy = (
+                set(map(tuple, meta["stable_occupancy"]))
+                if meta["stable_occupancy"] is not None
+                else None
+            )
+            n = meta["noise"]
+            self.noise.state = NoiseState[n["state"]]
+            self.noise.stable_count = n["stable_count"]
+            self.noise.cooldown_count = n["cooldown_count"]
+            self.noise.pending_squares = set(map(tuple, n["pending_squares"]))
+            self.noise.last_lifted_square = (
+                tuple(n["last_lifted_square"])
+                if n["last_lifted_square"] is not None
+                else None
+            )
+        self.log.info("checkpoint resumed: %s (FEN %s)", path, meta["fen"])
+        return meta
 
     def to_pgn(self, headers=None, comments=None, result=None,
                claim_draws=False) -> str:

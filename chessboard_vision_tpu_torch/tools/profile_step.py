@@ -1,10 +1,12 @@
 """Where one pipeline step's time goes on a CUDA card.
 
-Drives ``VisionPipeline.step`` on rendered frames of the benchmark's board
-layout (full smart-scan set, chained state) and prints, per step:
+Drives ``VisionPipeline.step`` (or, with ``--streams N``, one tick of
+``MultiStreamPipeline.step`` for N streams) on rendered frames of the
+benchmark's board layout (full smart-scan set, chained state) and prints,
+per step:
 
-- the host time to pack a frame with its flags and start its upload, and
-  the host time to enqueue the step's device work (no upload);
+- the host time to pack the frame(s) with the flags and start the upload,
+  and the host time to enqueue the step's device work (no upload);
 - under ``torch.profiler``: the wall time, the device busy time and its
   share of the wall, the device kernels and copies, and the top kernels
   by device time.
@@ -12,6 +14,7 @@ layout (full smart-scan set, chained state) and prints, per step:
 The card's name and power limit (nvidia-smi) head the output.
 
 Run: python -m chessboard_vision_tpu_torch.tools.profile_step [--steps 20] [--enhance]
+[--streams N]
 """
 
 from __future__ import annotations
@@ -24,7 +27,8 @@ import numpy as np
 import torch
 
 from chessboard_vision_tpu_torch.geometry import BoardGeometry
-from chessboard_vision_tpu_torch.models.pipeline import VisionPipeline
+from chessboard_vision_tpu_torch.models.pipeline import VisionPipeline, upload
+from chessboard_vision_tpu_torch.parallel.multistream import MultiStreamPipeline
 from chessboard_vision_tpu_torch.tools.synth import SynthCamera, bench_corners, initial_occupancy
 
 
@@ -35,6 +39,8 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=20, help="steps per measurement")
     ap.add_argument("--top", type=int, default=12, help="kernels to list")
     ap.add_argument("--enhance", action="store_true", help="profile the enhanced pipeline")
+    ap.add_argument("--streams", type=int, default=0,
+                    help="profile one N-stream tick (MultiStreamPipeline) instead of a step")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA device")
@@ -51,31 +57,54 @@ def main(argv=None):
     cam = SynthCamera(corners, frame_size=(h, w), board_px=g.board_size)
     rng = np.random.default_rng(0)
     frames = [cam.render(initial_occupancy(), rng) for _ in range(4)]
-    pipe = VisionPipeline(g, with_enhancer=args.enhance, device="cuda")
+    if args.streams:
+        k = args.streams
+        pipe = MultiStreamPipeline(g, k, with_enhancer=args.enhance, device="cuda")
+        frames = [np.stack([frames[(i + s) % 4] for s in range(k)]) for i in range(4)]
+        masks = np.ones((k, 64), bool)
+        flags = pipe._flags((), masks)
+
+        def step(state, i):
+            return pipe.step(state, frames[i % 4], s2c_masks=masks)
+
+        def enqueue(state, uploaded):
+            return pipe._tick(state, *uploaded)
+    else:
+        pipe = VisionPipeline(g, with_enhancer=args.enhance, device="cuda")
+        s2c = {(f, r) for f in range(8) for r in range(8)}
+        flags = np.concatenate([np.ones(64, bool), [True, False]])
+
+        def step(state, i):
+            return pipe.step(state, frames[i % 4], squares_to_check=s2c)
+
+        def enqueue(state, uploaded):
+            frame, packed = uploaded
+            return pipe._step_impl(state, frame, packed[:64], packed[64], packed[65])
     state = pipe.capture_reference(pipe.init_state(), frames[0])
-    s2c = {(f, r) for f in range(8) for r in range(8)}
     for i in range(10):  # warm up the allocator and the kernel build
-        state, _ = pipe.step(state, frames[i % 4], squares_to_check=s2c)
+        state, _ = step(state, i)
     torch.cuda.synchronize()
 
-    mask = np.ones(64, bool)
     t0 = time.perf_counter()
     for i in range(n):
-        frame, s2c_mask, flags = pipe._upload(frames[i % 4], mask, (True, False))
+        uploaded = upload(frames[i % 4], flags, pipe.device)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     for _ in range(n):
-        state, _ = pipe._step_impl(state, frame, s2c_mask, flags[0], flags[1])
+        state, _ = enqueue(state, uploaded)
     t2 = time.perf_counter()
     torch.cuda.synchronize()
     t3 = time.perf_counter()
-    print(f"{w}x{h}{' enhanced' if args.enhance else ''}: host pack+upload {1e3 * (t1 - t0) / n:.3f} ms, step enqueue "
+    what = f"{w}x{h}{' enhanced' if args.enhance else ''}"
+    if args.streams:
+        what += f", {args.streams} streams a tick"
+    print(f"{what}: host pack+upload {1e3 * (t1 - t0) / n:.3f} ms, step enqueue "
           f"{1e3 * (t2 - t1) / n:.3f} ms, enqueue+drain {1e3 * (t3 - t1) / n:.3f} ms per step")
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for i in range(n):
-            state, _ = pipe.step(state, frames[i % 4], squares_to_check=s2c)
+            state, _ = step(state, i)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / n
     dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]

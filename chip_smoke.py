@@ -45,21 +45,51 @@ the last line:
    it and reach the script's FEN.
 5. enhanced path: the same with VisionPipeline(with_enhancer=True) over 32
    frames, and a session calibrated with "use_enhancer": true.
+6. streams path (parallel/multistream.py, parallel/session.py) on rendered
+   1080p frames of 16 positions (each a different first move):
+   - B1 at N = 8*64 and 16*64 on the pooled planes of 8 and 16 frames:
+     each stream's 64 columns bit-equal to that stream's own N = 64
+     launch, scores within tolerance of the plain version, the masked
+     first-max argmax equal on every square, the TMA kernel taken; device
+     time beside torch.mm's and the bound.
+   - plain 8 streams: capture and two ticks (per-stream square masks and
+     re-reference flags) equal to 8 single-stream pipelines, occupancy
+     equal to each stream's rendered truth; step_chunk(T=8) equal to 8
+     sequential ticks; ms a tick, frames/s, device busy, ops and peak
+     memory. Plain 16 streams: occupancy equal to the truth on every
+     stream, and the same numbers. Every plain tick launches B1 once, on
+     the TMA kernel with N*64 columns, and none of B2-B4.
+   - per-stream geometry, plain and enhanced: 2 rigs, the second's corners
+     shifted, equal to two independent pipelines of the same kind.
+   - enhanced 8 streams: streams 0 and 5 equal to the single-stream
+     enhanced pipeline; one tick launches B1 once and B2, B3 and B4 once a
+     stream.
+   - MultiStreamSession with 8 streams: every stream commits its move and
+     reaches its FEN; a checkpoint saved mid-game and resumed into a fresh
+     session makes the same commits on the same ticks.
 
 Kernel launch counts are set to 0 just before each path and read just
 after it: the plain path must launch B1 and none of B2-B4, the enhanced
 path all four, with exactly one B3 (histograms + LUTs) and one B4 launch
-per CLAHE call; B1's 1080p launches must take the TMA kernel. The line before the last is the kernels' JSON record; the
-last line is ``{"ok": true, "device": {...}}``.
+per CLAHE call, the streams path all four; B1's 1080p launches must take
+the TMA kernel. On the streams path the counts are set to 0 just before
+each call of a MultiStreamPipeline or MultiStreamSession and read just
+after it, so the single-stream pipelines it is compared with add nothing. The line before the last is the kernels' JSON record (its
+launches summed over the three paths); the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 import collections
+import contextlib
+import itertools
 import json
 import os
 import re
 import subprocess
+import tempfile
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -75,7 +105,13 @@ from chessboard_vision_tpu_torch.ops import matmul_resample as mr
 from chessboard_vision_tpu_torch.ops.color import planar_bgr2lab
 from chessboard_vision_tpu_torch.ops.hough_conv import edge_planes
 from chessboard_vision_tpu_torch.ops.layout import to_planar
-from chessboard_vision_tpu_torch.tools.demo_pipeline import calibrated_session, play
+from chessboard_vision_tpu_torch.geometry import BoardGeometry
+from chessboard_vision_tpu_torch.ops.layout import positions_to_mask
+from chessboard_vision_tpu_torch.parallel import multistream as tms
+from chessboard_vision_tpu_torch.parallel.session import MultiStreamSession
+from chessboard_vision_tpu_torch.rules import chess as rules_chess
+from chessboard_vision_tpu_torch.tools.demo_pipeline import calibrated_session, occupancy_of, play
+from chessboard_vision_tpu_torch.utils import checkpoint as ckpt
 from chessboard_vision_tpu_torch.tools.synth import SynthCamera, bench_corners, initial_occupancy
 
 HEIGHT, WIDTH = 1080, 1920
@@ -84,6 +120,7 @@ F32_RTOL, F32_ATOL = 1e-5, 1e-5  # tests/test_torch_pipeline.py's tolerance
 EXACT_FIELDS = ("occupancy", "raw_occupancy", "visual_changes", "method", "radius",
                 "change_intensity")
 CHUNK, ENHANCED_CHUNK = 64, 32
+ALL_SQUARES = {(f, r) for f in range(8) for r in range(8)}
 DEVICE = "cuda"
 KERNELS = ("score_matmul", "bilateral", "clahe")
 # The card's published peaks (H100 SXM data sheet, dense, at 700 W).
@@ -129,6 +166,12 @@ def device_ms(fn, iters, before=None):
     time from torch.profiler over iters calls (after a warmup), which gaps
     while the host issues the next call do not inflate. before(), when
     given, runs ahead of each call and its kernels are left out."""
+    return device_profile(fn, iters, before)[0]
+
+
+def device_profile(fn, iters, before=None):
+    """device_ms's busy ms per call, and the device kernels and copies per
+    call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -146,9 +189,9 @@ def device_ms(fn, iters, before=None):
     torch.cuda.synchronize()
     skip = profiled(before)[0] if before else set()
     _, prof = profiled((lambda: (before(), fn())) if before else fn)
-    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA and e.key not in skip)
-    return busy_us / 1e3 / iters
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.key not in skip]
+    busy_us = sum(e.self_device_time_total for e in dev)
+    return busy_us / 1e3 / iters, sum(e.count for e in dev) / iters
 
 
 def kernel_vs_plain_ms(kernel, plain, iters):
@@ -223,11 +266,24 @@ def share(name, bound_ms, kernel_ms):
             f"{EARLIER_US[name]:.1f} us), {bound_ms / kernel_ms:.0%} of its bound")
 
 
+def library_mm(basis, pf):
+    """(label, call) of the library call for B1's function: cuBLAS's bf16
+    GEMM with f32 output where this torch has out_dtype, else its
+    bf16-output GEMM."""
+    pf_t = pf.T
+    try:
+        torch.mm(basis, pf_t, out_dtype=torch.float32)
+        return ("torch.mm(bf16, bf16, out_dtype=float32)",
+                lambda: torch.mm(basis, pf_t, out_dtype=torch.float32))
+    except (TypeError, RuntimeError):  # no out_dtype, or not for this device
+        return "torch.mm(bf16, bf16) -> bf16", lambda: torch.mm(basis, pf_t)
+
+
 def score_matmul_phase(pipe, frame, smi):
     """B1 vs its plain version at the main path's shapes."""
     gray, _ = pipe.preprocess(torch.from_numpy(to_planar(frame)).to(DEVICE))
-    planes = edge_planes(gray, pipe.conv_dims).planes_flat
-    basis, kvalid = pipe.conv_plan.basis, pipe.conv_plan.kvalid
+    planes = edge_planes(gray, pipe.consts.conv_dims).planes_flat
+    basis, kvalid = pipe.consts.conv_plan.basis, pipe.consts.conv_plan.kvalid
     g = torch.Generator(device=DEVICE).manual_seed(0)
     rand_a = torch.randn(basis.shape, device=DEVICE, generator=g).to(torch.bfloat16)
     rand_b = torch.randn(planes.shape, device=DEVICE, generator=g).to(torch.bfloat16)
@@ -257,15 +313,7 @@ def score_matmul_phase(pipe, frame, smi):
     kernel_ms, plain_ms, event_ms = kernel_vs_plain_ms(
         lambda: sm.score_matmul(basis, planes), lambda: sm.score_matmul_reference(basis, planes),
         200)
-    # The library call for the same function: cuBLAS's bf16 GEMM with f32
-    # output where this torch has out_dtype, else its bf16-output GEMM.
-    pf_t = planes.T
-    try:
-        torch.mm(basis, pf_t, out_dtype=torch.float32)
-        library = ("torch.mm(bf16, bf16, out_dtype=float32)",
-                   lambda: torch.mm(basis, pf_t, out_dtype=torch.float32))
-    except (TypeError, RuntimeError):  # no out_dtype, or not for this device
-        library = ("torch.mm(bf16, bf16) -> bf16", lambda: torch.mm(basis, pf_t))
+    library = library_mm(basis, planes)
     library_ms = device_ms(library[1], 200)
     # The same two with the L2 cache flushed before each call: a read of
     # L2_FLUSH_BYTES leaves no basis line (and nothing dirty) in L2.
@@ -505,6 +553,32 @@ COUNTERS = {
 PATH_WRAPPER = {"clahe_hist": "clahe_hist_luts"}
 
 
+@contextlib.contextmanager
+def counted(total):
+    """Every launch count set to 0 just before the block and read just after
+    it: the block's counts go into the yielded dict and are added to the
+    Counter ``total``."""
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    got = {}
+    yield got
+    got.update({name: fn.launches for name, fn in COUNTERS.items()})
+    total.update(got)
+
+
+def check_tick(got, n, label, enhanced=False):
+    """One tick of n streams: B1 once, on the TMA kernel with n*64 columns;
+    B2, B3 (through clahe_hist_luts) and B4 once a stream when enhanced,
+    else not at all."""
+    k = n if enhanced else 0
+    want = {"score_matmul": 1, "bilateral": k, "clahe_hist": 0, "clahe_hist_luts": k,
+            "clahe_apply": k}
+    check(got == want, f"{label}: launches in one tick {got}, want {want}")
+    path, shape = sm.score_matmul.last_path, sm.score_matmul.last_shape
+    check(path == "tma" and shape[1] == n * 64,
+          f"{label}: B1 took the {path} kernel at (M, N, K) {shape}, want N = {n * 64} on tma")
+
+
 def run_path(label, use_enhancer, corners, camera, rng, chunk, smi):
     """Drive one path (pipeline, then session) with every count set to 0
     just before it; returns the counts read just after it, with the path's
@@ -531,6 +605,327 @@ def run_path(label, use_enhancer, corners, camera, rng, chunk, smi):
     return counts
 
 
+# The first moves of the streams' 16 positions; the session plays the first 8.
+STREAM_MOVES = ("e2e4", "d2d4", "g1f3", "c2c4", "b1c3", "e2e3", "d2d3", "g2g3",
+                "b2b3", "f2f4", "a2a4", "h2h4", "c2c3", "f2f3", "b2b4", "h2h3")
+TIMED_TICKS = 10
+SESSION_SAVE_TICK = 10  # the session's checkpoint, mid-game (commits come ~20 ticks in)
+
+
+def render_all(camera, occs, seed):
+    """One frame of each occupancy, each from its own seed, rendered in
+    threads (numpy's array loops let go of the interpreter lock)."""
+    with ThreadPoolExecutor(8) as pool:
+        return list(pool.map(lambda i: camera.render(occs[i], np.random.default_rng((seed, i))),
+                             range(len(occs))))
+
+
+def b1_wide_phase(basis, kvalid, planes, smi):
+    """B1 at N = 8*64 and 16*64 on the pooled planes of 8 and 16 rendered
+    frames: each stream's 64 columns bit-equal to its own N = 64 launch,
+    scores within tolerance of the plain version, the masked first-max
+    argmax equal on every square; device time beside the library call's
+    and the bound."""
+    (M, K), max_err = basis.shape, 0.0
+    for n in (8, 16):
+        pf = planes[: n * 64]
+        got = sm.score_matmul(basis, pf)
+        check(sm.score_matmul.last_path == "tma",
+              f"score_matmul N={n * 64}: took the {sm.score_matmul.last_path} kernel")
+        for i in range(n):
+            own = sm.score_matmul(basis, pf[i * 64:(i + 1) * 64])
+            check(torch.equal(got[:, i * 64:(i + 1) * 64], own),
+                  f"score_matmul N={n * 64}: stream {i}'s columns differ from its N=64 launch")
+        want = sm.score_matmul_reference(basis, pf)
+        torch.testing.assert_close(got, want, rtol=SCORE_RTOL, atol=SCORE_ATOL)
+        err = (got - want).abs().max().item()
+        max_err = max(max_err, err)
+        kv = kvalid.repeat(1, n)
+        gi = torch.argmax(torch.where(kv, got, -torch.inf), dim=0)
+        wi = torch.argmax(torch.where(kv, want, -torch.inf), dim=0)
+        flips = (gi != wi).nonzero().flatten().tolist()
+        check(not flips, f"score_matmul N={n * 64}: argmax differs on squares {flips}")
+        library = library_mm(basis, pf)
+        kernel_ms, library_ms, event_ms = kernel_vs_plain_ms(
+            lambda: sm.score_matmul(basis, pf), library[1], 100)
+        bound_ms, bound_by = bound(2 * M * K + 2 * n * 64 * K + 4 * M * n * 64,
+                                   2 * M * n * 64 * K, BF16_FLOPS)
+        phase("streams", f"score_matmul N={n * 64} ({n} streams): ({M}, {K}) x ({n * 64}, {K}) "
+              f"on the tma kernel, each stream's columns bit-equal to its N=64 launch, "
+              f"max_abs_err {err!r}, argmax equal on all {n * 64} squares; device "
+              f"{kernel_ms * 1e3:.1f} us/call (CUDA events {event_ms * 1e3:.1f} us), "
+              f"{library[0]} {library_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.1f} us "
+              f"({bound_by}), {bound_ms / kernel_ms:.0%} of its bound; on {smi}")
+    return max_err
+
+
+def _occ_set(occ):
+    return {(f, r) for f in range(8) for r in range(8) if occ[f, r]}
+
+
+def _all_masks(n):
+    return np.ones((n, 64), bool)
+
+
+def _stream_outputs(host, s):
+    return tp.StepOutputs(*(f[s] for f in host.step))
+
+
+def streams_vs_single(ms, single, ref, ticks, label, launches):
+    """Capture, then step ``ms`` (plain) through ticks of (frames, masks,
+    refresh) and each stream through the single-stream pipeline ``single``
+    with a state of its own: every stream's outputs must equal its
+    pipeline's, and each tick launches B1 once. ``ms``'s launches go into
+    ``launches``. Returns (state, host outputs of the last tick)."""
+    n = ms.n_streams
+    with counted(launches):
+        state = ms.capture_reference(ms.init_state(), ref)
+    singles = [single.capture_reference(single.init_state(), ref[s]) for s in range(n)]
+    for t, (frames, masks, refresh) in enumerate(ticks):
+        with counted(launches) as got:
+            state, out = ms.step(state, frames, s2c_masks=masks, refresh=refresh)
+        check_tick(got, n, f"{label} tick {t}")
+        host = tms.outputs_to_numpy(out)
+        for s in range(n):
+            squares = None if masks is None else tp.occupancy_to_set(masks[s])
+            singles[s], o = single.step(singles[s], frames[s], squares_to_check=squares,
+                                        refresh_refs=refresh is not None and bool(refresh[s]))
+            _compare_outputs(_stream_outputs(host, s), tp.outputs_to_numpy(o),
+                             f"{label} tick {t} stream {s}")
+    return state, host
+
+
+def time_ticks(ms, state, frame_sets, masks, label, smi, ticks=TIMED_TICKS):
+    """Chained ticks with fixed square masks, the frame sets in turn: ms a
+    tick on the host clock (pack + upload alone, enqueue, wall with the
+    drain), aggregate frames/s, device busy and device ops a tick under the
+    profiler, peak memory."""
+    n = ms.n_streams
+    frames = [frame_sets[t % len(frame_sets)] for t in range(ticks)]
+    flags = ms._flags((), masks)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for fr in frames:
+        tp.upload(fr, flags, ms.device)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for fr in frames:
+        state, _ = ms.step(state, fr, s2c_masks=masks)
+    t2 = time.perf_counter()
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    k = len(frames)
+    pack_ms, enqueue_ms, wall_ms = ((t1 - t0) * 1e3 / k, (t2 - t1) * 1e3 / k, (t3 - t1) * 1e3 / k)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    box, it = [state], itertools.cycle(frame_sets)
+
+    def tick():
+        box[0], _ = ms.step(box[0], next(it), s2c_masks=masks)
+
+    busy_ms, ops = device_profile(tick, 5)
+    phase("streams", f"{label}: {wall_ms:.3f} ms/tick ({n * 1e3 / wall_ms:.1f} frames/s "
+          f"aggregate; host pack+upload {pack_ms:.3f} ms, step enqueue incl. pack "
+          f"{enqueue_ms:.3f} ms), device busy {busy_ms:.3f} ms/tick ({busy_ms / wall_ms:.1%} "
+          f"of the wall), {ops:.0f} device kernels+copies/tick, peak memory "
+          f"{peak_gb:.3f} GB (torch.cuda.max_memory_allocated); on {smi}")
+    return box[0]
+
+
+def streams_phase(corners, camera, g, enhanced_pipe, smi):
+    """The N-stream path at 1080p: B1 at wide N, then plain 8 and 16
+    streams, per-stream geometry, enhanced 8 streams and an 8-stream
+    session with a checkpoint resume, with the launch counts set to 0 just
+    before each call of the path and read just after it. Returns (the
+    path's counts, B1's max error)."""
+    boards = []
+    for uci in STREAM_MOVES:
+        b = rules_chess.Board()
+        b.push_uci(uci)
+        boards.append(b)
+    occs = [occupancy_of(b) for b in boards]
+    occ0 = initial_occupancy()
+    t0 = time.perf_counter()
+    sets = [render_all(camera, occs, seed) for seed in (10, 11)]  # 2 frames a position
+    initial = render_all(camera, [occ0] * 3, 12)
+    phase("streams", f"rendered {2 * len(occs) + 3} frames of {WIDTH}x{HEIGHT} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    ref16 = np.stack([initial[s % 3] for s in range(16)])
+    ms16 = tms.MultiStreamPipeline(g, 16, device=DEVICE)
+    check(ms16.consts.conv_plan.kvalid.shape[1] == 1024, "folded kvalid width")
+    frames16, _ = tp.upload(np.stack(sets[0]), np.zeros(0, bool), ms16.device)
+    gray, _ = ms16._squares(frames16)
+    planes = edge_planes(gray, ms16.consts.conv_dims).planes_flat
+    b1_err = b1_wide_phase(ms16.pipe.consts.conv_plan.basis, ms16.pipe.consts.conv_plan.kvalid,
+                           planes, smi)
+    del frames16, gray, planes
+
+    launches = collections.Counter()
+    single = tp.VisionPipeline(g, device=DEVICE)
+    ms8 = tms.MultiStreamPipeline(g, 8, device=DEVICE)
+    ref8 = ref16[:8]
+    smart = np.stack([positions_to_mask(_occ_set(o)) for o in occs[:8]])
+    ticks = [(np.stack(sets[0][:8]), _all_masks(8), None),
+             (np.stack(sets[1][:8]), smart, np.arange(8) % 2 == 0)]
+    state, host = streams_vs_single(ms8, single, ref8, ticks, "plain 8 streams", launches)
+    for s in range(8):
+        check(tp.occupancy_to_set(host.step.occupancy[s]) == _occ_set(occs[s]),
+              f"plain 8 streams: stream {s} occupancy != rendered truth")
+    phase("streams", "plain 8 streams: capture + 2 ticks (per-stream masks and re-reference "
+          "flags) equal 8 single-stream pipelines; every stream's occupancy equals its "
+          "rendered truth")
+    chunk = np.stack([np.stack(sets[t % 2][:8]) for t in range(8)])
+    seq = tms.multistream_state_from_numpy(tms.multistream_state_to_numpy(state), DEVICE)
+    with counted(launches) as got:
+        state, many = ms8.step_chunk(state, chunk)
+    want = dict.fromkeys(COUNTERS, 0) | {"score_matmul": 8}
+    check(got == want, f"step_chunk(T=8): launches {got}, want {want}")
+    many = tms.outputs_to_numpy(many)
+    check(many.step.occupancy.shape == (8, 8, 64), "step_chunk output shape")
+    for t in range(8):
+        with counted(launches) as got:
+            seq, o = ms8.step(seq, chunk[t])
+        check_tick(got, 8, f"plain 8 streams sequential tick {t}")
+        o = tms.outputs_to_numpy(o)
+        _compare_outputs(tp.StepOutputs(*(f[t] for f in many.step)), o.step,
+                         f"step_chunk tick {t}")
+        for f in o.noise._fields:
+            check(np.array_equal(getattr(many.noise, f)[t], getattr(o.noise, f)),
+                  f"step_chunk tick {t} noise {f} differs")
+    for a, b in zip(tms.multistream_state_to_numpy(seq), tms.multistream_state_to_numpy(state)):
+        for x, y in zip(ckpt.tree_leaves(a), ckpt.tree_leaves(b)):
+            check(x.dtype == y.dtype and (np.array_equal(x, y) or np.allclose(
+                x, y, rtol=F32_RTOL, atol=F32_ATOL)), "step_chunk state differs")
+    phase("streams", "step_chunk(T=8) of 8 streams equals 8 sequential ticks")
+    del chunk
+    with counted(launches):
+        state = time_ticks(ms8, state, [np.stack(fs[:8]) for fs in sets], smart,
+                           "plain 8 streams", smi)
+    del ms8, state, seq
+
+    frames = np.stack(sets[0])
+    with counted(launches):
+        state = ms16.capture_reference(ms16.init_state(), ref16)
+    with counted(launches) as got:
+        state, out = ms16.step(state, frames, s2c_masks=_all_masks(16))
+    check_tick(got, 16, "plain 16 streams")
+    host = tms.outputs_to_numpy(out)
+    for s in range(16):
+        check(tp.occupancy_to_set(host.step.occupancy[s]) == _occ_set(occs[s]),
+              f"plain 16 streams: stream {s} occupancy != rendered truth")
+    phase("streams", "plain 16 streams: every stream's occupancy equals its rendered truth")
+    smart16 = np.stack([positions_to_mask(_occ_set(o)) for o in occs])
+    with counted(launches):
+        time_ticks(ms16, state, [np.stack(fs) for fs in sets], smart16, "plain 16 streams", smi)
+    del ms16, state
+
+    corners2 = corners + np.array([[14, 9], [-11, 6], [8, -7], [-12, -10]])
+    g2 = BoardGeometry.from_calibration(corners2, display_size=(WIDTH, HEIGHT))
+    camera2 = SynthCamera(corners2, frame_size=(HEIGHT, WIDTH), board_px=g2.board_size)
+    ref2, step2 = render_all(camera2, [occ0, occs[1]], 13)
+    refs, frames = np.stack([initial[0], ref2]), np.stack([sets[0][0], step2])
+    for enhanced in (False, True):
+        kind = "enhanced" if enhanced else "plain"
+        ms2 = tms.MultiStreamPipeline([g, g2], 2, with_enhancer=enhanced, device=DEVICE)
+        with counted(launches):
+            state = ms2.capture_reference(ms2.init_state(), refs)
+        with counted(launches) as got:
+            state, out = ms2.step(state, frames, s2c_masks=_all_masks(2))
+        check_tick(got, 2, f"{kind} per-stream geometry", enhanced)
+        host = tms.outputs_to_numpy(out)
+        for s, geo in enumerate((g, g2)):
+            pipe = tp.VisionPipeline(geo, with_enhancer=enhanced, device=DEVICE)
+            st = pipe.capture_reference(pipe.init_state(), refs[s])
+            st, o = pipe.step(st, frames[s], squares_to_check=ALL_SQUARES)
+            _compare_outputs(_stream_outputs(host, s), tp.outputs_to_numpy(o),
+                             f"{kind} per-stream geometry stream {s}")
+            check(tp.occupancy_to_set(host.step.occupancy[s]) == _occ_set(occs[s]),
+                  f"{kind} per-stream geometry: stream {s} occupancy != rendered truth")
+        phase("streams", f"{kind} per-stream geometry (2 rigs, the second's corners shifted): "
+              f"outputs equal two independent {kind} pipelines and the rendered truth; one "
+              f"tick launched {got}")
+        del ms2, state
+
+    ms_enh = tms.MultiStreamPipeline(g, 8, with_enhancer=True, device=DEVICE)
+    with counted(launches):
+        state = ms_enh.capture_reference(ms_enh.init_state(), ref8)
+    with counted(launches) as per_tick:
+        state, out = ms_enh.step(state, np.stack(sets[0][:8]), s2c_masks=_all_masks(8))
+    check_tick(per_tick, 8, "enhanced 8 streams", enhanced=True)
+    host = tms.outputs_to_numpy(out)
+    for s in (0, 5):
+        st = enhanced_pipe.capture_reference(enhanced_pipe.init_state(), ref8[s])
+        st, o = enhanced_pipe.step(st, sets[0][s], squares_to_check=ALL_SQUARES)
+        _compare_outputs(_stream_outputs(host, s), tp.outputs_to_numpy(o),
+                         f"enhanced 8 streams stream {s}")
+    phase("streams", f"enhanced 8 streams: streams 0 and 5 equal the single-stream enhanced "
+          f"pipeline; one tick launched {per_tick}")
+    with counted(launches):
+        time_ticks(ms_enh, state, [np.stack(fs[:8]) for fs in sets], _all_masks(8),
+                   "enhanced 8 streams", smi, ticks=5)
+    del ms_enh, state
+
+    with counted(launches):  # the session's calls alone launch kernels in this phase
+        multistream_session_phase(g, sets, initial)
+    counts = {name: launches[name] for name in COUNTERS}
+    phase("streams", f"kernel launches on this path: {counts}")
+    return counts, b1_err
+
+
+def multistream_session_phase(g, sets, initial):
+    """8 games on one MultiStreamSession, each playing its own first move;
+    a checkpoint saved mid-game and resumed into a fresh session makes the
+    same commits on the same ticks."""
+    scripts = []
+    for uci in STREAM_MOVES[:8]:
+        b = rules_chess.Board()
+        b.push_uci(uci)
+        scripts.append(b)
+
+    def session():
+        sess = MultiStreamSession(g, 8, device=DEVICE)
+        sess.MOVE_COOLDOWN = 0.0
+        return sess
+
+    def tick_frames(t):
+        return np.stack([sets[t % 2][s] for s in range(8)])
+
+    sess = session()
+    sess.capture_reference(np.stack([initial[s % 3] for s in range(8)]))
+    for t in range(3):
+        check(not any(sess.on_frames(np.stack([initial[(t + s) % 3] for s in range(8)]))),
+              "session: a move committed on the start position")
+    log, committed = [], [None] * 8
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "streams.npz")
+        for t in range(45):
+            if t == SESSION_SAVE_TICK:
+                check(not any(committed), "session: committed before the checkpoint tick")
+                sess.save_checkpoint(path)
+            moves = [m and m.uci() for m in sess.on_frames(tick_frames(t))]
+            log.append(moves)
+            for s, m in enumerate(moves):
+                if m:
+                    check(committed[s] is None, f"session: stream {s} committed twice")
+                    committed[s] = (m, t)
+            if all(committed):
+                break
+        check(all(committed), f"session: commits {committed}")
+        resumed = session()
+        resumed.resume_checkpoint(path)
+        relog = [[m and m.uci() for m in resumed.on_frames(tick_frames(t))]
+                 for t in range(SESSION_SAVE_TICK, len(log))]
+    check(relog == log[SESSION_SAVE_TICK:], "session: the resumed session's commits differ")
+    for s, b in enumerate(scripts):
+        check(committed[s][0] == STREAM_MOVES[s], f"session: stream {s} committed "
+              f"{committed[s][0]}, scripted {STREAM_MOVES[s]}")
+        for sess_ in (sess, resumed):
+            check(sess_.streams[s].game.get_fen() == b.fen(), f"session: stream {s} FEN")
+    phase("streams", f"MultiStreamSession (8 streams): every stream committed its scripted "
+          f"move (ticks {[c[1] for c in committed]}) and reached its FEN; a checkpoint of tick "
+          f"{SESSION_SAVE_TICK} resumed into a fresh session made the same commits")
+
+
 def main():
     name, smi = device_phase()
     build_phase()
@@ -543,7 +938,7 @@ def main():
     g = pipe.geometry
     camera = SynthCamera(corners, frame_size=(HEIGHT, WIDTH), board_px=g.board_size)
     phase("kernel", f"geometry: board {g.board_size} px, squares {pipe.H}x{pipe.W} pad "
-          f"{g.squares.pad}, basis {tuple(pipe.conv_plan.basis.shape)}, board tiles "
+          f"{g.squares.pad}, basis {tuple(pipe.consts.conv_plan.basis.shape)}, board tiles "
           f"{pipe._tile_dims.q_rows}x{pipe._tile_dims.q_cols}")
     frame = camera.render(initial_occupancy(), rng)
     records = [score_matmul_phase(pipe, frame, smi)]
@@ -566,9 +961,15 @@ def main():
           f"{enhanced['clahe_apply']} B4 launches, not one B3 and one B4 each")
     phase("enhanced", f"{n} CLAHE calls, each one B3 and one B4 launch")
 
+    streams, b1_wide_err = streams_phase(corners, camera, g, pipe, smi)
+    missing = [k for k in COUNTERS if k != "clahe_hist" and streams[k] == 0]
+    check(not missing, f"the streams path never launched {missing}")
+    check(streams["clahe_hist"] == 0, "the streams path launched the histogram-only B3")
+    records[0]["max_abs_err"] = max(records[0]["max_abs_err"], b1_wide_err)
+
     for rec in records:
         w = PATH_WRAPPER.get(rec["name"], rec["name"])
-        rec["launches"] = plain[w] + enhanced[w]
+        rec["launches"] = plain[w] + enhanced[w] + streams[w]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: rec[k] for k in keys} for rec in records]}), flush=True)

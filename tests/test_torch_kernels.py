@@ -79,6 +79,21 @@ def test_score_matmul_launches_are_bit_equal(cuda):
     assert torch.equal(first, second)
 
 
+@pytest.mark.parametrize("streams", [8, 16])
+def test_score_matmul_wide_n_columns_equal_their_n64_launches(cuda, streams):
+    """N = streams * 64 (the N-stream step): each stream's 64 columns are
+    bit-equal to that stream's own N = 64 launch (every score is one CTA's
+    in-order sum over K), on the TMA kernel."""
+    g = torch.Generator(device=cuda).manual_seed(streams)
+    a = torch.randn(M_1080P, K_1080P, device=cuda, generator=g).to(torch.bfloat16)
+    b = torch.randn(streams * 64, K_1080P, device=cuda, generator=g).to(torch.bfloat16)
+    wide = sm.score_matmul(a, b)
+    assert sm.score_matmul.last_path == "tma"
+    for s in range(streams):
+        assert torch.equal(wide[:, s * 64:(s + 1) * 64], sm.score_matmul(a, b[s * 64:(s + 1) * 64]))
+    torch.testing.assert_close(wide, sm.score_matmul_reference(a, b), rtol=SCORE_RTOL, atol=SCORE_ATOL)
+
+
 def test_score_matmul_path_by_shape_and_alignment(cuda):
     """The 1080p shapes take the TMA kernel; K % 8 != 0 and an operand that
     is not 16-byte aligned take the staged one, with the same results."""
@@ -143,6 +158,44 @@ def test_pipeline_on_card_matches_cpu(cuda):
                 np.testing.assert_array_equal(y, x, err_msg=f)
     truth = {(f, r) for f in range(8) for r in range(8) if occ[f, r]}
     assert tp.occupancy_to_set(outs["cuda"][-1].occupancy) == truth
+
+
+def test_multistream_on_card_matches_cpu(cuda):
+    """Three 1280x720 streams in different positions through the N-stream
+    pipeline on the card and on the CPU: bool/i32 outputs and the noise
+    FSM's equal, f32 outputs close."""
+    from chessboard_vision_tpu_torch.parallel import multistream as tms
+
+    h, w = 720, 1280
+    corners = bench_corners(h, w)
+    g = geo.BoardGeometry.from_calibration(corners, display_size=(w, h))
+    cam = SynthCamera(corners, frame_size=(h, w), board_px=g.board_size)
+    rng = np.random.default_rng(4)
+    occ0 = initial_occupancy()
+    occ1 = occ0.copy()
+    occ1[4, 1], occ1[4, 3] = False, True
+    ref = np.stack([cam.render(occ0, rng) for _ in range(3)])
+    ticks = [np.stack([cam.render(o, rng) for o in (occ0, occ1, occ0)]) for _ in range(2)]
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        ms = tms.MultiStreamPipeline(g, 3, device=dev)
+        st = ms.capture_reference(ms.init_state(), ref)
+        seq = []
+        for t, frames in enumerate(ticks):
+            st, o = ms.step(st, frames, s2c_masks=np.ones((3, 64), bool),
+                            refresh=[t == 1, False, True])
+            seq.append(tms.outputs_to_numpy(o))
+        outs[dev] = seq
+    for c, d in zip(outs["cpu"], outs["cuda"]):
+        for part in ("step", "noise"):
+            for f in getattr(c, part)._fields:
+                x, y = getattr(getattr(c, part), f), getattr(getattr(d, part), f)
+                if x.dtype == np.float32:
+                    np.testing.assert_allclose(y, x, rtol=1e-4, atol=1e-3, err_msg=f)
+                else:
+                    np.testing.assert_array_equal(y, x, err_msg=f)
+    assert tp.occupancy_to_set(outs["cuda"][-1].step.occupancy[1]) == {
+        (f, r) for f in range(8) for r in range(8) if occ1[f, r]}
 
 
 def test_find_circle_on_card_matches_cpu(cuda):

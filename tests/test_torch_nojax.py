@@ -3,8 +3,9 @@ that has none of them.
 
 A subprocess blocks the three imports (``sys.modules[name] = None``),
 imports every module of the port and runs one plain and one enhanced
-pipeline step on the CPU on frames from the numpy-only renderer
-(tools/synth.py), with the geometry from the port's own copy. The port's
+pipeline step and one 2-stream tick on the CPU on frames from the
+numpy-only renderer (tools/synth.py), with the geometry from the port's
+own copy. The port's
 copies of the JAX package's host modules (``geometry``, ``rules``) give the
 same arrays, moves and FEN as the originals.
 """
@@ -38,7 +39,10 @@ import chessboard_vision_tpu_torch as port
 names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-assert len(names) >= 20, names
+assert len(names) >= 25, names
+for name in ("ops.fsm", "parallel", "parallel.multistream", "parallel.session",
+             "utils.checkpoint"):
+    assert port.__name__ + "." + name in names, name
 
 from chessboard_vision_tpu_torch import geometry as geo
 from chessboard_vision_tpu_torch.models.pipeline import (
@@ -59,6 +63,14 @@ for enhance in (False, True):
     assert all(np.isfinite(np.asarray(f, np.float64)).all() for f in out)
     got = occupancy_to_set(out.occupancy)
     assert got == truth, (enhance, sorted(got ^ truth))
+from chessboard_vision_tpu_torch.parallel import MultiStreamPipeline
+from chessboard_vision_tpu_torch.parallel.multistream import outputs_to_numpy as multi_to_numpy
+ms = MultiStreamPipeline(g, n_streams=2, device="cpu")
+state = ms.capture_reference(ms.init_state(), np.stack([cam.render(occ, rng)] * 2))
+state, out = ms.step(state, np.stack([cam.render(occ, rng) for _ in range(2)]))
+out = multi_to_numpy(out)
+for i in range(2):
+    assert occupancy_to_set(out.step.occupancy[i]) == truth, i
 assert not any(m == "jax" or m.startswith(("jax.", "jaxlib", "cv2", "chessboard_vision_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
 print("NOJAX_OK", len(names))
