@@ -104,16 +104,21 @@ def detect_all(
     masks: piece_ops.PieceMasks,
     s2c_mask: torch.Tensor,  # (n,) bool
     s2c_given: torch.Tensor,  # () or (n,) bool: whether squares_to_check was provided
-    conv_plan,
-    conv_dims,
+    conv_plan=None,
+    conv_dims=None,
     hough_param1: int = 100,
     hough_param2: int = 25,
     center_diff_threshold: float = 40.0,
     gray_flat: Optional[torch.Tensor] = None,
+    hough_backend: str = "conv",
+    hough_params=None,
+    hough_bounds=None,
 ) -> Tuple[PieceState, DetectAllOutputs]:
     """One detect_all_pieces step (with the reference's delta gate and
     5-frame smoothing on). gray: (64, H, W) u8 preprocessed squares;
-    gray_flat: optional (64, H*W) view of the same gray."""
+    gray_flat: optional (64, H*W) view of the same gray. The Hough backend
+    and its constants go to ops/piece.detect_pieces: conv_plan/conv_dims
+    for 'conv', hough_params/hough_bounds for 'exact'."""
     if gray_flat is None:
         gray_flat = gray.reshape(gray.shape[0], -1)
     changed = _mean_diff_exceeds(
@@ -129,6 +134,7 @@ def detect_all(
         gray, masks, conv_plan, conv_dims,
         hough_param1=hough_param1, hough_param2=hough_param2,
         center_diff_threshold=center_diff_threshold,
+        hough_backend=hough_backend, hough_params=hough_params, hough_bounds=hough_bounds,
     )
 
     raw_has = torch.where(use_fresh, fresh.has_piece, state.cache_has)

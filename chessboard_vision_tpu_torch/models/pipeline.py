@@ -1,18 +1,33 @@
-"""Frame -> per-square occupancy pipeline (conv Hough backend).
+"""Frame -> per-square occupancy pipeline.
 
-Counterpart of chessboard_vision_tpu.models.pipeline. One step turns a
-planar BGR camera frame into 64 per-square ``StepOutputs``: gray ->
-bilinear square resample -> 5x5 Gaussian -> piece cascade with delta
-cache and 5-frame smoothing -> EMA change model. With ``with_enhancer``
-the frame is first warped to a color board, enhanced (models/enhancer.py:
-CLAHE and bilateral kernels) and grayscaled, and the squares are taken
-from the board. The temporal state is an explicit ``PipelineState``:
-``step(state, frame) -> (state, outputs)``.
+Counterpart of chessboard_vision_tpu.models.pipeline. One step turns a BGR
+camera frame into 64 per-square ``StepOutputs``: squares -> 5x5 Gaussian ->
+piece cascade with delta cache and 5-frame smoothing -> EMA change model.
+The squares come by the frame's layout, as in the JAX package's
+``_preprocess``: a planar (3, H, W) frame is grayscaled and resampled
+(ops/matmul_resample.py); an HWC (H, W, 3) frame is warped to the board by
+gather (ops/warp.py), its squares extracted and grayscaled. With
+``with_enhancer`` the color board (tile plan for planar frames, the gather
+warp for HWC) is enhanced (models/enhancer.py: CLAHE and bilateral kernels)
+and grayscaled first, and the squares are taken from it. The host API
+routes frames as the JAX package's does: its ``step`` turns a host (numpy)
+HWC camera frame planar, so here a numpy HWC frame is taken planar too (the
+card transposes the uploaded bytes), while a tensor keeps its layout, as a
+JAX device array does: an HWC tensor takes the gather warp. The temporal
+state is an explicit ``PipelineState``: ``step(state, frame) -> (state,
+outputs)``.
+
+Hough backends: ``conv`` (the score matmul, kernel B1) and ``exact`` (the
+cv2-faithful voting transform, ops/hough.py). ``auto`` picks ``exact`` on
+the CPU and ``conv`` on the card, as the JAX package picks ``exact`` off
+the accelerator and ``conv`` on it.
 
 Host <-> device traffic: ``step`` and ``step_many`` make one H2D copy each
-(the frame or frame chunk, packed with the per-frame control flags) and
-never wait on the device; the outputs stay on the device until
-``outputs_to_numpy`` reads them back in one D2H copy.
+(a host frame or frame chunk as its bytes are, packed with the per-frame
+control flags; of a tensor, the flags alone); the outputs stay on the
+device until ``outputs_to_numpy`` reads them back in one D2H copy. Only
+the exact backend waits on the device within a step: its Canny hysteresis
+reads a convergence flag back once a block of dilations (ops/canny.py).
 """
 
 from __future__ import annotations
@@ -27,11 +42,12 @@ from chessboard_vision_tpu_torch.geometry import BoardGeometry
 from chessboard_vision_tpu_torch.models import piece_detector as pd_model
 from chessboard_vision_tpu_torch.models.enhancer import enhance_planar
 from chessboard_vision_tpu_torch.ops import change as change_ops
+from chessboard_vision_tpu_torch.ops import hough as hough_ops
 from chessboard_vision_tpu_torch.ops import hough_conv as hough_conv_ops
 from chessboard_vision_tpu_torch.ops import matmul_resample as mr
 from chessboard_vision_tpu_torch.ops import piece as piece_ops
 from chessboard_vision_tpu_torch.ops import warp as warp_ops
-from chessboard_vision_tpu_torch.ops.color import planar_bgr2gray
+from chessboard_vision_tpu_torch.ops.color import bgr2gray, planar_bgr2gray
 from chessboard_vision_tpu_torch.ops.filters import gaussian_blur_valid
 from chessboard_vision_tpu_torch.ops.layout import positions_to_mask
 
@@ -45,12 +61,15 @@ class StepConsts(NamedTuple):
     """The per-square device constants the step core reads. A
     VisionPipeline holds its 64 squares' (``VisionPipeline.consts``); the
     stream-folded N-stream step passes them tiled to N*64 squares
-    (parallel/multistream.py)."""
+    (parallel/multistream.py). The Hough backend's constants are set and
+    the other backend's are None: ``params`` for exact, ``conv_plan`` and
+    ``conv_dims`` for conv."""
 
     dg: warp_ops.DeviceGeometry
     masks: piece_ops.PieceMasks
-    conv_plan: hough_conv_ops.ConvHoughPlan
-    conv_dims: hough_conv_ops.ConvHoughDims
+    params: Optional[hough_ops.HoughParams]
+    conv_plan: Optional[hough_conv_ops.ConvHoughPlan]
+    conv_dims: Optional[hough_conv_ops.ConvHoughDims]
 
 
 class StepOutputs(NamedTuple):
@@ -128,7 +147,8 @@ class VisionPipeline:
     Every geometry-derived constant (resample plans, masks, Hough basis) is
     built on the host and moved to ``device`` once, here. Recalibrating
     builds a new pipeline. ``device`` is the card unless the caller asks
-    for the CPU; without a card, "cuda" raises.
+    for the CPU; without a card, "cuda" raises. ``hough_backend`` is
+    "conv", "exact" or "auto": exact on a CPU device, conv on the card.
     """
 
     def __init__(
@@ -144,12 +164,12 @@ class VisionPipeline:
     ):
         self.device = resolve_device(device, "VisionPipeline")
         if hough_backend == "auto":
-            hough_backend = "conv"
-        if hough_backend != "conv":
-            raise NotImplementedError(
-                f"hough_backend={hough_backend!r}: only 'conv' is ported "
-                "(the exact backend is ROADMAP.md Queue A, A12)"
-            )
+            # The JAX package picks conv on its accelerator (scatter voting
+            # serializes there) and exact elsewhere; the card plays the
+            # accelerator's role. Read from the pipeline's device alone.
+            hough_backend = "conv" if self.device.type == "cuda" else "exact"
+        if hough_backend not in ("conv", "exact"):
+            raise ValueError(f"hough_backend={hough_backend!r}: use 'conv', 'exact' or 'auto'")
         self.hough_backend = hough_backend
         self.geometry = geometry
         s = geometry.squares
@@ -162,14 +182,22 @@ class VisionPipeline:
                 min_ratio = piece_settings["min_radius"] / 100.0
             if "max_radius" in piece_settings:
                 max_ratio = piece_settings["max_radius"] / 100.0
-        # Bounded hysteresis (2 rounds) on the conv path, as in the JAX package.
-        conv_plan, conv_dims = hough_conv_ops.ConvHoughPlan.build(
-            heights, widths, min_ratio=min_ratio, max_ratio=max_ratio,
-            plane_h=self.H, plane_w=self.W, hysteresis_rounds=2, device=self.device,
-        )
+        params = conv_plan = conv_dims = None
+        self.bounds = None  # the exact backend's static loop and shape bounds
+        if hough_backend == "conv":
+            # Bounded hysteresis (2 rounds) on the conv path, as in the JAX package.
+            conv_plan, conv_dims = hough_conv_ops.ConvHoughPlan.build(
+                heights, widths, min_ratio=min_ratio, max_ratio=max_ratio,
+                plane_h=self.H, plane_w=self.W, hysteresis_rounds=2, device=self.device,
+            )
+        else:
+            params, self.bounds = hough_ops.HoughParams.from_geometry(
+                heights, widths, min_ratio=min_ratio, max_ratio=max_ratio, device=self.device,
+            )
         self.consts = StepConsts(
             dg=warp_ops.DeviceGeometry.from_host(geometry, device=self.device),
             masks=piece_ops.PieceMasks.build(heights, widths, self.H, self.W, device=self.device),
+            params=params,
             conv_plan=conv_plan,
             conv_dims=conv_dims,
         )
@@ -228,19 +256,32 @@ class VisionPipeline:
     # -- device functions ------------------------------------------------
 
     def preprocess(self, frames: torch.Tensor):
-        """(..., 3, Hf, Wf) planar u8, any leading stream axes -> blurred
-        gray squares (n, H, W) u8 for the piece cascade, 64 a frame in
-        stream-major order, and the change model's own-blur squares (None
-        when the change model shares the 5x5 blur)."""
-        if self.with_enhancer:
-            boards = mr.warp_board_color(frames, self._tile_plan, self._tile_dims, self._tile_index)
-            squares = [self._enhanced_board_squares(b)
-                       for b in boards.reshape((-1,) + tuple(boards.shape[-3:]))]
-            gray_padded = squares[0] if len(squares) == 1 else torch.cat(squares)
+        """(..., 3, Hf, Wf) planar or (..., Hf, Wf, 3) HWC u8, any leading
+        stream axes -> blurred gray squares (n, H, W) u8 for the piece
+        cascade, 64 a frame in stream-major order, and the change model's
+        own-blur squares (None when the change model shares the 5x5 blur).
+        Planar frames take the matmul resample, HWC frames the gather warp."""
+        if is_hwc(frames):
+            board = warp_ops.frame_to_board(frames, self.consts.dg)  # (..., B, B, 3)
+            if self.with_enhancer:
+                gray_padded = self._enhanced_squares(board.movedim(-1, -3))
+            else:
+                # Gray first, then the square gather: the same pixels as
+                # bgr2gray(extract_squares(board)), from one channel.
+                gray_padded = warp_ops.extract_gray_squares(bgr2gray(board), self.consts.dg)
+        elif self.with_enhancer:
+            gray_padded = self._enhanced_squares(
+                mr.warp_board_color(frames, self._tile_plan, self._tile_dims, self._tile_index))
         else:
             gray_padded = mr.resample_gray_u8(planar_bgr2gray(frames), self._mm_plan, self._mm_dims)
-            gray_padded = gray_padded.reshape((-1,) + tuple(gray_padded.shape[-2:]))
-        return self.blur(gray_padded)
+        return self.blur(gray_padded.reshape((-1,) + tuple(gray_padded.shape[-2:])))
+
+    def _enhanced_squares(self, boards: torch.Tensor) -> torch.Tensor:
+        """(..., 3, B, B) color boards -> (n, H+2p, W+2p) enhanced padded
+        gray squares, each board enhanced on its own."""
+        squares = [self._enhanced_board_squares(b)
+                   for b in boards.reshape((-1,) + tuple(boards.shape[-3:]))]
+        return squares[0] if len(squares) == 1 else torch.cat(squares)
 
     def blur(self, gray_padded: torch.Tensor):
         """Padded gray squares (n, H+2p, W+2p) u8 -> (the piece cascade's
@@ -282,7 +323,8 @@ class VisionPipeline:
         piece_state, det = pd_model.detect_all(
             piece_in, gray, consts.masks, s2c_mask, s2c_given,
             consts.conv_plan, consts.conv_dims,
-            gray_flat=gray_flat, **self._det_kwargs,
+            gray_flat=gray_flat, hough_backend=self.hough_backend,
+            hough_params=consts.params, hough_bounds=self.bounds, **self._det_kwargs,
         )
         gcd = gray_flat if gray_change is None else change_ops.flatten_pixels(gray_change)
         cdet = change_ops.detect(
@@ -310,12 +352,19 @@ class VisionPipeline:
         return PipelineState(piece=piece_state, change=change_state), outputs
 
     def _upload(self, frames, s2c_mask: np.ndarray, flags) -> tuple:
-        """``upload`` of host frame(s) with the (64,) square mask and the
-        flags; returns device views (planar frames, mask, flags)."""
-        frames, packed = upload(
-            frames, np.concatenate([s2c_mask, np.asarray(flags, bool)]), self.device
-        )
-        return frames, packed[:64], packed[64:]
+        """Frame(s) with the (64,) square mask and the flags -> device views
+        (frames, mask, flags). Host frames go up with the flags in one
+        ``upload``, and an HWC one is then taken planar, as the JAX ``step``
+        takes a host frame; a tensor keeps its layout."""
+        packed_flags = np.concatenate([s2c_mask, np.asarray(flags, bool)])
+        if isinstance(frames, torch.Tensor):
+            frames_d = frames.to(self.device)
+            _, packed = upload(np.zeros(0, np.uint8), packed_flags, self.device)
+        else:
+            frames_d, packed = upload(frames, packed_flags, self.device)
+            if is_hwc(frames_d):
+                frames_d = frames_d.movedim(-1, -3)
+        return frames_d, packed[:64], packed[64:]
 
     # -- host API --------------------------------------------------------
 
@@ -345,7 +394,8 @@ class VisionPipeline:
         squares_to_check=None,
         refresh_refs: bool = False,
     ):
-        """Process one host frame: (H, W, 3) HWC or (3, H, W) planar BGR u8.
+        """Process one frame: (H, W, 3) HWC or (3, H, W) planar BGR u8, a
+        host array (HWC taken planar) or a tensor (in its layout).
         squares_to_check: optional set of (file, rank) to force a fresh
         detection on; refresh_refs forces a visual re-reference from this
         frame first. Returns (state, StepOutputs on the device)."""
@@ -361,7 +411,8 @@ class VisionPipeline:
         squares_to_check=None,
         refresh_first: bool = False,
     ):
-        """Process a chunk of K host frames: (K, H, W, 3) or (K, 3, H, W) u8.
+        """Process a chunk of K frames: (K, H, W, 3) or (K, 3, H, W) u8, routed
+        as in ``step``.
 
         One H2D copy for the chunk, a device-side loop of K steps with the
         same per-frame semantics as K sequential ``step`` calls, outputs
@@ -383,15 +434,19 @@ class VisionPipeline:
         return state, StepOutputs(*(torch.stack(f) for f in zip(*outs)))
 
 
+def is_hwc(frames) -> bool:
+    """Whether frames (any leading axes) are in the HWC camera layout
+    (..., H, W, 3) rather than planar (..., 3, H, W)."""
+    return frames.shape[-1] == 3 and frames.shape[-3] != 3
+
+
 def upload(frames, flags: np.ndarray, device: torch.device) -> tuple:
     """One H2D copy: host frames (HWC camera layout or planar u8, any
-    leading axes) become planar u8 in one host buffer together with the
-    bool array ``flags``; the buffer is page-locked on CUDA, so the copy is
-    asynchronous. Returns device views (planar frames, flags in their
-    shape)."""
+    leading axes), their bytes as they are, in one host buffer together
+    with the bool array ``flags``; the buffer is page-locked on CUDA, so the
+    copy is asynchronous. Returns device views (frames in their layout,
+    flags in their shape)."""
     frames = np.asarray(frames, np.uint8)
-    if frames.shape[-1] == 3:  # HWC camera layout -> planar view
-        frames = np.moveaxis(frames, -1, -3)
     flags = np.asarray(flags, bool)
     n = frames.size
     host = torch.empty(n + flags.size, dtype=torch.uint8, pin_memory=device.type == "cuda")

@@ -2,7 +2,13 @@
 
 Sobel-3 with replicate border, direction-quantized non-maximum suppression
 with OpenCV's exact >/>= tie rules and its tan(22.5) fixed-point constant,
-then 8-connected hysteresis written as plain bool ops on (N, H, W).
+then 8-connected hysteresis. A hysteresis step is the JAX package's
+``edges | (dilate3(edges) & weak)``; since the edges start as the strong
+pixels and stay within cand = strong | weak, that is
+``dilate3(edges) & cand``. As in the JAX package, the steps run on
+bitplanes: the N images' bool maps are packed 32 to an integer word, so a
+step is a few shifted ORs over (ceil(N/32), H, W) words, bit-identical to
+the per-image maps.
 """
 
 from __future__ import annotations
@@ -14,6 +20,12 @@ from chessboard_vision_tpu_torch.ops.filters import sobel3
 
 _TG22 = 13573  # tan(22.5 deg) * 2^15, OpenCV's fixed-point constant
 _MAX_ITERS = 256  # dilation cap of the exact fixpoint, as in the JAX package
+# The exact fixpoint runs its dilations in blocks and reads one "changed"
+# flag back to the host after each block: _FIRST_BLOCK dilations, then each
+# block _GROWTH times the last, the total capped at _MAX_ITERS. Dilations past
+# the fixpoint change nothing, so every schedule that stops at the fixpoint
+# or at the cap gives the JAX package's edges (it checks every 4 dilations).
+_FIRST_BLOCK, _GROWTH = 8, 2
 
 
 def _shift2(x: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
@@ -24,22 +36,41 @@ def _shift2(x: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
     return xp[..., pb : pb + h, pr : pr + w]
 
 
-def _dilate3(x: torch.Tensor) -> torch.Tensor:
-    """8-connected dilation of a (..., H, W) bool map."""
-    h, w = x.shape[-2], x.shape[-1]
-    xp = F.pad(x, (1, 1, 1, 1))
+def _pack_bits(x: torch.Tensor) -> torch.Tensor:
+    """(N, H, W) bool -> (ceil(N/32), H, W) int64 words, image s in bit
+    s % 32 of word s // 32 (padding images are 0, inert under dilation)."""
+    n, h, w = x.shape
+    k = -(-n // 32)
+    xp = F.pad(x.to(torch.int64), (0, 0, 0, 0, 0, k * 32 - n)).reshape(k, 32, h, w)
+    sh = torch.arange(32, device=x.device, dtype=torch.int64).reshape(1, 32, 1, 1)
+    return (xp << sh).sum(dim=1)  # disjoint bits: the sum is an OR
+
+
+def _unpack_bits(p: torch.Tensor, n: int) -> torch.Tensor:
+    """(K, H, W) words -> (n, H, W) bool."""
+    k, h, w = p.shape
+    sh = torch.arange(32, device=p.device, dtype=torch.int64).reshape(1, 32, 1, 1)
+    return ((p[:, None] >> sh) & 1).reshape(k * 32, h, w)[:n].bool()
+
+
+def _grow(edges: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:
+    """One hysteresis step on packed words: the 8-connected dilation of
+    ``edges`` within ``cand``."""
+    h, w = edges.shape[-2], edges.shape[-1]
+    xp = F.pad(edges, (1, 1, 1, 1))
     v = xp[..., 0:h, :] | xp[..., 1 : h + 1, :] | xp[..., 2 : h + 2, :]
-    return v[..., 0:w] | v[..., 1 : w + 1] | v[..., 2 : w + 2]
+    return (v[..., 0:w] | v[..., 1 : w + 1] | v[..., 2 : w + 2]) & cand
 
 
 def canny(img: torch.Tensor, low: int, high: int, hysteresis_rounds: int = -1) -> torch.Tensor:
     """cv2.Canny(img, low, high) for u8 (..., H, W) images -> bool edges.
 
     hysteresis_rounds: -1 runs the exact fixpoint (bit-exact vs cv2; its
-    convergence test reads a flag back to the host once per 4 dilations,
-    so it is not for the per-frame path); k >= 0 runs exactly k rounds of
-    4 dilations with no host sync (the pipeline's conv Hough path uses 2):
-    weak pixels further than 4k steps from a strong pixel are dropped.
+    convergence test reads a flag back to the host once per block of
+    dilations, each read counted in ``canny.host_syncs``); k >= 0 runs
+    exactly k rounds of 4 dilations with no host sync (the pipeline's conv
+    Hough path uses 2): weak pixels further than 4k steps from a strong
+    pixel are dropped.
     """
     dx, dy = sobel3(img)
     mag = dx.abs() + dy.abs()
@@ -63,22 +94,29 @@ def canny(img: torch.Tensor, low: int, high: int, hysteresis_rounds: int = -1) -
     keep = torch.where(horiz, keep_h, torch.where(vert, keep_v, keep_d))
 
     cand = (mag > low) & keep
-    strong = cand & (mag > high)
-    weak = cand & ~strong
-
-    edges = strong
+    shape = cand.shape
+    cand = cand.reshape((-1,) + shape[-2:])
+    n = cand.shape[0]
+    edges = _pack_bits(cand & (mag > high).reshape(cand.shape))
+    cand = _pack_bits(cand)
     if hysteresis_rounds >= 0:
         for _ in range(4 * hysteresis_rounds):
-            edges = edges | (_dilate3(edges) & weak)
-        return edges
+            edges = _grow(edges, cand)
+        return _unpack_bits(edges, n).reshape(shape)
 
-    i = 0
-    changed = True
-    while changed and i < _MAX_ITERS:
+    done, block = 0, _FIRST_BLOCK
+    while True:
         new = edges
-        for _ in range(4):
-            new = new | (_dilate3(new) & weak)
-        changed = bool((new != edges).any())
-        edges = new
-        i += 4
-    return edges
+        for _ in range(min(block, _MAX_ITERS - done)):
+            new = _grow(new, cand)
+        done += min(block, _MAX_ITERS - done)
+        if done == _MAX_ITERS:
+            break
+        canny.host_syncs += 1
+        if torch.equal(new, edges):  # a block changed nothing: the fixpoint
+            break
+        edges, block = new, block * _GROWTH
+    return _unpack_bits(new, n).reshape(shape)
+
+
+canny.host_syncs = 0

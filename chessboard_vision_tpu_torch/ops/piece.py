@@ -1,4 +1,4 @@
-"""Batched per-square piece-presence cascade (conv Hough backend).
+"""Batched per-square piece-presence cascade.
 
 Counterpart of chessboard_vision_tpu.ops.piece (reference
 piece_detector.py detect_piece :272-345): uniformity prefilter (std < 15),
@@ -17,6 +17,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from chessboard_vision_tpu_torch.ops import hough as hough_ops
 from chessboard_vision_tpu_torch.ops import hough_conv as hough_conv_ops
 from chessboard_vision_tpu_torch.ops.warp import masked_mean
 
@@ -107,13 +108,21 @@ class PieceDetections(NamedTuple):
 def detect_pieces(
     gray: torch.Tensor,
     masks: PieceMasks,
-    conv_plan: hough_conv_ops.ConvHoughPlan,
-    conv_dims: hough_conv_ops.ConvHoughDims,
+    conv_plan: hough_conv_ops.ConvHoughPlan = None,
+    conv_dims: hough_conv_ops.ConvHoughDims = None,
     center_diff_threshold: float = 40.0,
     hough_param1: int = 100,
     hough_param2: int = 25,
+    hough_backend: str = "conv",
+    hough_params: hough_ops.HoughParams = None,
+    hough_bounds: hough_ops.HoughBounds = None,
 ) -> PieceDetections:
-    """Raw per-square cascade on preprocessed squares, gray: (64, H, W) u8."""
+    """Raw per-square cascade on preprocessed squares, gray: (64, H, W) u8.
+
+    hough_backend: 'conv' = the annular-correlation detector with the score
+    matmul (ops/hough_conv.py, needs conv_plan/conv_dims); 'exact' = the
+    cv2-faithful voting transform (ops/hough.py, needs hough_params and
+    hough_bounds)."""
     gf = gray.float()
     v = masks.valid
     n = masks.counts.float()
@@ -124,13 +133,21 @@ def detect_pieces(
     std = torch.sqrt(d2.sum(dim=(-2, -1)) / n)
     std_ok = std >= STD_THRESHOLD
 
-    # Method 1: Hough circles (conv backend).
-    cc = hough_conv_ops.find_circle(
-        gray, conv_plan, conv_dims, param1=hough_param1, param2=hough_param2
-    )
+    # Method 1: Hough circles.
     min_dim = torch.minimum(masks.heights, masks.widths)
-    h_found, h_cx, h_cy, h_r = cc.found, cc.cx, cc.cy, cc.radius
-    h_small = h_r.float() < min_dim.float() * 0.20
+    if hough_backend == "conv":
+        cc = hough_conv_ops.find_circle(
+            gray, conv_plan, conv_dims, param1=hough_param1, param2=hough_param2
+        )
+        h_found, h_cx, h_cy, h_r = cc.found, cc.cx, cc.cy, cc.radius
+        h_small = h_r.float() < min_dim.float() * 0.20
+    else:
+        circles = hough_ops.hough_circles(
+            gray, hough_params, hough_bounds, param1=hough_param1, param2=hough_param2
+        )
+        h_found, h_cx, h_cy, h_r, h_small = hough_ops.best_circle_near_center(
+            circles, masks.heights, masks.widths
+        )
 
     # Method 2: center vs corner-border intensity difference.
     center_mean = masked_mean(gf, masks.center_disk, masks.center_counts)

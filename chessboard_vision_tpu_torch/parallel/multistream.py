@@ -12,11 +12,16 @@ op is elementwise or a per-square reduction, so each stream's outputs are
 those of a single-stream pipeline. The device noise FSM (ops/fsm.py) then
 steps all N streams on (N, 64).
 
-Per-stream calibration: pass a LIST of N BoardGeometry objects instead of
-one. Each stream's squares are then resampled with its own plan (with the
-enhancer: its board warped with its own tile plan); the rest is shared.
-All rigs must share the grid structure (square heights and widths) and the
-capture resolution; corners may differ.
+Frames: with one shared geometry, HWC camera frames (host arrays too, as
+in the JAX package's tick, unlike its single-stream ``step``) take the
+single-stream pipeline's gather warp (ops/warp.py) and planar frames its
+matmul resample. Per-stream calibration: pass a LIST of N
+BoardGeometry objects instead of one. Each stream's squares are then
+resampled with its own plan (with the enhancer: its board warped with its
+own tile plan) from planar frames (HWC frames are permuted to planar on the
+device, the JAX package's host conversion); the rest is shared. All rigs
+must share the grid structure (square heights and widths) and the capture
+resolution; corners may differ.
 
 The enhanced path enhances each stream's board on its own, as the
 single-stream pipeline does: the bilateral and CLAHE kernels launch once
@@ -46,9 +51,9 @@ from chessboard_vision_tpu_torch.models.pipeline import (
 )
 from chessboard_vision_tpu_torch.ops import change as change_ops
 from chessboard_vision_tpu_torch.ops import fsm as fsm_ops
+from chessboard_vision_tpu_torch.ops import hough as hough_ops
 from chessboard_vision_tpu_torch.ops import matmul_resample as mr
 from chessboard_vision_tpu_torch.ops import piece as piece_ops
-from chessboard_vision_tpu_torch.ops import warp as warp_ops
 from chessboard_vision_tpu_torch.ops.color import planar_bgr2gray
 
 # Per tick and stream, the uploaded flags: 64 square-mask bits, then
@@ -150,33 +155,42 @@ class MultiStreamPipeline:
                     mr.build_plan(qx, qy, g.src_h, g.src_w, device=self.device)
                 )
 
-        plan, dims = p.consts.conv_plan, p.consts.conv_dims
+        plan, dims, dg = p.consts.conv_plan, p.consts.conv_dims, p.consts.dg
 
         def t(x):
             return _tile(x, n)
 
         self.consts = StepConsts(
-            dg=warp_ops.DeviceGeometry(*map(t, p.consts.dg)),
+            # The per-square geometry fields (the warp maps and square
+            # gathers serve the shared-geometry preprocess, not the core).
+            dg=dg._replace(sq_mask=t(dg.sq_mask), sq_mask_flat=t(dg.sq_mask_flat),
+                           sq_counts=t(dg.sq_counts), sq_heights=t(dg.sq_heights),
+                           sq_widths=t(dg.sq_widths)),
             masks=piece_ops.PieceMasks(*map(t, p.consts.masks)),
+            params=None if p.consts.params is None else hough_ops.HoughParams(
+                *map(t, p.consts.params)),
             # The score matmul's outputs and their validity table keep the
             # square axis last (column n of the (Mq, N*64) scores).
-            conv_plan=plan._replace(
+            conv_plan=None if plan is None else plan._replace(
                 r_valid=t(plan.r_valid), r_min=t(plan.r_min), r_max=t(plan.r_max),
                 win_offset_y=t(plan.win_offset_y), win_offset_x=t(plan.win_offset_x),
                 win_mask=_tile(plan.win_mask, n, last=True),
                 kvalid=_tile(plan.kvalid, n, last=True),
             ),
-            conv_dims=dims._replace(woy=t(dims.woy), wox=t(dims.wox)),
+            conv_dims=None if dims is None else dims._replace(woy=t(dims.woy), wox=t(dims.wox)),
         )
 
     # -- device functions ------------------------------------------------
 
     def _squares(self, frames: torch.Tensor):
-        """(N, 3, Hf, Wf) planar u8 -> folded blurred gray squares
-        (N*64, H, W) u8 and the change model's own blur (or None)."""
+        """(N, 3, Hf, Wf) planar or (N, Hf, Wf, 3) HWC u8 -> folded blurred
+        gray squares (N*64, H, W) u8 and the change model's own blur (or
+        None)."""
         p = self.pipe
         if self._stream_plans is None:  # one batched warp or resample for the shared plan
             return p.preprocess(frames)
+        if tp.is_hwc(frames):  # the per-stream plans resample planar frames
+            frames = frames.movedim(-1, -3)
         if p.with_enhancer:
             padded = torch.cat([
                 p._enhanced_board_squares(mr.warp_board_color(frames[i], plan, dims, p._tile_index))
@@ -195,7 +209,7 @@ class MultiStreamPipeline:
         return x.reshape((self.n_streams, 64) + tuple(x.shape[1:]))
 
     def _tick(self, state: MultiStreamState, frames: torch.Tensor, flags: torch.Tensor):
-        """One tick on device tensors: frames (N, 3, Hf, Wf) u8, flags
+        """One tick on device tensors: frames (N, 3, Hf, Wf) or (N, Hf, Wf, 3) u8, flags
         (N, 66) bool (square masks, given, refresh)."""
         gray, gray_cd = self._squares(frames)
         pipe_state, out = self.pipe._step_core(

@@ -52,8 +52,11 @@ class GameSession:
     MOVE_COOLDOWN = 2.0  # seconds after a committed move
     FULL_SCAN_PERIOD = 30  # full 64-square scan every Nth frame
 
-    def __init__(self, device="cuda"):
+    def __init__(self, device="cuda", hough_backend: str = "auto"):
+        """``hough_backend`` goes to the VisionPipeline: "auto" is exact on a
+        CPU device and conv on the card."""
         self.device = resolve_device(device, "GameSession")
+        self.hough_backend = hough_backend
         self.board_lock = threading.RLock()
 
         self.config: Optional[dict] = None
@@ -102,6 +105,7 @@ class GameSession:
             change_settings=load_json_config(SENSITIVITY_FILE),
             with_enhancer=use_enhancer,
             enhancer_profile=enhancer_profile,
+            hough_backend=self.hough_backend,
             device=self.device,
         )
         self.pipe_state = self.pipeline.init_state()

@@ -6,7 +6,8 @@ prints each committed move, the final FEN and the PGN. Exits 1 if a
 scripted move is not committed or the FEN differs from the script's.
 
 Run: python -m chessboard_vision_tpu_torch.tools.demo_pipeline [--enhance]
-(on the card; ``--device cpu`` runs the plain PyTorch versions instead).
+(on the card, with the conv Hough backend; ``--device cpu`` runs the plain
+PyTorch versions instead, with the exact Hough backend).
 """
 
 from __future__ import annotations
@@ -34,12 +35,14 @@ def occupancy_of(board) -> np.ndarray:
 
 
 def calibrated_session(corners, display_size=None, device="cuda",
-                       use_enhancer=False) -> GameSession:
+                       use_enhancer=False, hough_backend="auto") -> GameSession:
     """A GameSession on ``device`` calibrated from four board corners (TL,
     TR, BL, BR) of a ``display_size`` (width, height) frame, or of the
     default 1280x720 when None, with the move cooldown off for replay.
-    ``use_enhancer`` runs the enhanced pipeline (config "use_enhancer")."""
-    session = GameSession(device=device)
+    ``use_enhancer`` runs the enhanced pipeline (config "use_enhancer");
+    ``hough_backend`` goes to the pipeline ("auto": exact on the CPU, conv
+    on the card)."""
+    session = GameSession(device=device, hough_backend=hough_backend)
     session.MOVE_COOLDOWN = 0.0
     config = {
         "corners": np.asarray(corners).tolist(),
@@ -113,7 +116,7 @@ def main(argv=None):
     print(f"final FEN: {session.game.get_fen()}")
     print(f"script FEN: {script.fen()}")
     print(f"{n_frames} frames in {dt:.1f}s ({n_frames / dt:.1f} fps incl. render) "
-          f"on {args.device}")
+          f"on {args.device}, hough_backend {session.pipeline.hough_backend}")
     print("\nPGN:\n" + session.to_pgn(headers={"Event": "demo_pipeline"}))
     if session.game.get_fen() != script.fen():
         print("FEN MISMATCH")

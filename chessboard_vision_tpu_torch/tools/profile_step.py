@@ -5,16 +5,19 @@ Drives ``VisionPipeline.step`` (or, with ``--streams N``, one tick of
 benchmark's board layout (full smart-scan set, chained state) and prints,
 per step:
 
-- the host time to pack the frame(s) with the flags and start the upload,
-  and the host time to enqueue the step's device work (no upload);
+- the host time to pack the frame(s) with the flags and start the upload
+  (as the step does it: a host HWC frame is taken planar on the card by a
+  single-stream step and kept HWC by a shared-geometry tick), and the host
+  time to enqueue the step's device work (no upload);
 - under ``torch.profiler``: the wall time, the device busy time and its
-  share of the wall, the device kernels and copies, and the top kernels
-  by device time.
+  share of the wall, the device kernels and copies, the host syncs (the
+  exact backend's hysteresis readbacks), and the top kernels by device
+  time.
 
 The card's name and power limit (nvidia-smi) head the output.
 
 Run: python -m chessboard_vision_tpu_torch.tools.profile_step [--steps 20] [--enhance]
-[--streams N]
+[--streams N] [--hough-backend conv|exact] [--planar]
 """
 
 from __future__ import annotations
@@ -28,6 +31,8 @@ import torch
 
 from chessboard_vision_tpu_torch.geometry import BoardGeometry
 from chessboard_vision_tpu_torch.models.pipeline import VisionPipeline, upload
+from chessboard_vision_tpu_torch.ops.canny import canny
+from chessboard_vision_tpu_torch.ops.layout import to_planar
 from chessboard_vision_tpu_torch.parallel.multistream import MultiStreamPipeline
 from chessboard_vision_tpu_torch.tools.synth import SynthCamera, bench_corners, initial_occupancy
 
@@ -41,6 +46,10 @@ def main(argv=None):
     ap.add_argument("--enhance", action="store_true", help="profile the enhanced pipeline")
     ap.add_argument("--streams", type=int, default=0,
                     help="profile one N-stream tick (MultiStreamPipeline) instead of a step")
+    ap.add_argument("--hough-backend", default="auto", choices=("auto", "conv", "exact"),
+                    help="circle detector (auto: conv on the card)")
+    ap.add_argument("--planar", action="store_true",
+                    help="hand the frames over planar (the matmul resample) instead of HWC")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA device")
@@ -57,9 +66,12 @@ def main(argv=None):
     cam = SynthCamera(corners, frame_size=(h, w), board_px=g.board_size)
     rng = np.random.default_rng(0)
     frames = [cam.render(initial_occupancy(), rng) for _ in range(4)]
+    if args.planar:
+        frames = [to_planar(f) for f in frames]
+    kw = dict(with_enhancer=args.enhance, hough_backend=args.hough_backend, device="cuda")
     if args.streams:
         k = args.streams
-        pipe = MultiStreamPipeline(g, k, with_enhancer=args.enhance, device="cuda")
+        pipe = MultiStreamPipeline(g, k, **kw)
         frames = [np.stack([frames[(i + s) % 4] for s in range(k)]) for i in range(4)]
         masks = np.ones((k, 64), bool)
         flags = pipe._flags((), masks)
@@ -67,19 +79,24 @@ def main(argv=None):
         def step(state, i):
             return pipe.step(state, frames[i % 4], s2c_masks=masks)
 
+        def pack(i):
+            return upload(frames[i % 4], flags, pipe.device)
+
         def enqueue(state, uploaded):
             return pipe._tick(state, *uploaded)
     else:
-        pipe = VisionPipeline(g, with_enhancer=args.enhance, device="cuda")
+        pipe = VisionPipeline(g, **kw)
         s2c = {(f, r) for f in range(8) for r in range(8)}
-        flags = np.concatenate([np.ones(64, bool), [True, False]])
 
         def step(state, i):
             return pipe.step(state, frames[i % 4], squares_to_check=s2c)
 
+        def pack(i):
+            return pipe._upload(frames[i % 4], np.ones(64, bool), (True, False))
+
         def enqueue(state, uploaded):
-            frame, packed = uploaded
-            return pipe._step_impl(state, frame, packed[:64], packed[64], packed[65])
+            frame, mask, flags = uploaded
+            return pipe._step_impl(state, frame, mask, flags[0], flags[1])
     state = pipe.capture_reference(pipe.init_state(), frames[0])
     for i in range(10):  # warm up the allocator and the kernel build
         state, _ = step(state, i)
@@ -87,7 +104,7 @@ def main(argv=None):
 
     t0 = time.perf_counter()
     for i in range(n):
-        uploaded = upload(frames[i % 4], flags, pipe.device)
+        uploaded = pack(i)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     for _ in range(n):
@@ -95,12 +112,15 @@ def main(argv=None):
     t2 = time.perf_counter()
     torch.cuda.synchronize()
     t3 = time.perf_counter()
-    what = f"{w}x{h}{' enhanced' if args.enhance else ''}"
+    backend = pipe.pipe.hough_backend if args.streams else pipe.hough_backend
+    what = (f"{w}x{h}{' enhanced' if args.enhance else ''}, {backend} Hough, "
+            f"{'planar' if args.planar else 'HWC'} frames")
     if args.streams:
         what += f", {args.streams} streams a tick"
     print(f"{what}: host pack+upload {1e3 * (t1 - t0) / n:.3f} ms, step enqueue "
           f"{1e3 * (t2 - t1) / n:.3f} ms, enqueue+drain {1e3 * (t3 - t1) / n:.3f} ms per step")
 
+    syncs = canny.host_syncs
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for i in range(n):
@@ -112,7 +132,7 @@ def main(argv=None):
     ops = sum(e.count for e in dev) / n
     print(f"profiled {n} steps: wall {wall_ms:.3f} ms/step, device busy {busy_ms:.3f} "
           f"ms/step ({100 * busy_ms / wall_ms:.1f}% of wall), {ops:.0f} device "
-          "kernels+copies/step")
+          f"kernels+copies/step, {(canny.host_syncs - syncs) / n:.1f} host syncs/step")
     for e in sorted(dev, key=lambda e: -e.self_device_time_total)[: args.top]:
         print(f"  {e.self_device_time_total / 1e3 / n:8.3f} ms/step  {e.count / n:6.1f}/step  "
               f"{e.key[:90]}")

@@ -24,9 +24,10 @@ the last line:
      cache flushed before each call (a 200 MB read), beside the library
      call's, to show whether the timing loop finds the basis in L2.
    - B2 bilateral on (3, 980, 980): the rendered board as the enhanced path
-     hands it over, and random u8; bit-equal to the plain version, two
-     launches bit-equal, and its color-weight table bit-equal to torch.exp
-     on the card.
+     hands it over from an HWC frame on the card (the gather warp, lit),
+     and random u8; bit-equal to the plain version, two launches
+     bit-equal, and its color-weight table bit-equal to torch.exp on the
+     card.
    B1's and B2's lines give their device time beside that of the kernels'
    earlier designs and the share of the bound it reaches.
    - B3 CLAHE histograms of the reflect pad with the LUTs built from them,
@@ -38,14 +39,25 @@ the last line:
      bit-equal, two launches bit-equal.
    B3's and B4's lines give their time beside their earlier designs' too.
 4. plain path: VisionPipeline(device="cuda") on rendered 1920x1080 frames
-   of the benchmark's board layout: a clean frame's occupancy equals the
-   rendered truth; step_many over 64 frames equals 64 sequential steps
-   (bool/i32 exactly, f32 within the CPU tests' tolerance); ms per frame.
-   Then the port's GameSession plays e2e4 through on_frame and must commit
-   it and reach the script's FEN.
+   of the benchmark's board layout, each handed over three ways: planar
+   host arrays and HWC host arrays (the camera's layout, which the step
+   takes planar on the card, as the JAX package's step takes a host frame)
+   take the matmul resample, HWC tensors on the card the gather warp. A
+   clean frame's occupancy equals the rendered truth in all three; step_many
+   over 64 frames equals 64 sequential steps (bool/i32 exactly, f32 within
+   the CPU tests' tolerance) and shows e2e4; ms per frame each way. Then
+   the port's GameSession plays e2e4 through on_frame and must commit it
+   and reach the script's FEN.
 5. enhanced path: the same with VisionPipeline(with_enhancer=True) over 32
    frames, and a session calibrated with "use_enhancer": true.
-6. streams path (parallel/multistream.py, parallel/session.py) on rendered
+6. exact path: VisionPipeline(hough_backend="exact") on HWC host frames: a
+   clean frame equals the truth, step_many over 16 frames equals the
+   sequential steps, a GameSession on the exact backend commits e2e4, and
+   no kernel launches; square decisions agree with the conv pipeline's on
+   the same frames on >= 99.5%; ms a frame of both backends in turns, with
+   device busy, ops and host syncs (the exact Canny's convergence
+   readbacks) a step.
+7. streams path (parallel/multistream.py, parallel/session.py) on rendered
    1080p frames of 16 positions (each a different first move):
    - B1 at N = 8*64 and 16*64 on the pooled planes of 8 and 16 frames:
      each stream's 64 columns bit-equal to that stream's own N = 64
@@ -53,17 +65,21 @@ the last line:
      first-max argmax equal on every square, the TMA kernel taken; device
      time beside torch.mm's and the bound.
    - plain 8 streams: capture and two ticks (per-stream square masks and
-     re-reference flags) equal to 8 single-stream pipelines, occupancy
+     re-reference flags) on HWC host frames, which a shared-geometry tick
+     warps by gather as the JAX package's does, equal to 8 single-stream
+     pipelines given the same frames on the card (their gather route), occupancy
      equal to each stream's rendered truth; step_chunk(T=8) equal to 8
      sequential ticks; ms a tick, frames/s, device busy, ops and peak
      memory. Plain 16 streams: occupancy equal to the truth on every
      stream, and the same numbers. Every plain tick launches B1 once, on
      the TMA kernel with N*64 columns, and none of B2-B4.
+   - exact 8 streams: one tick's occupancy equal to each stream's truth,
+     no kernel launched, the tick's host syncs; ms a tick.
    - per-stream geometry, plain and enhanced: 2 rigs, the second's corners
      shifted, equal to two independent pipelines of the same kind.
    - enhanced 8 streams: streams 0 and 5 equal to the single-stream
-     enhanced pipeline; one tick launches B1 once and B2, B3 and B4 once a
-     stream.
+     enhanced pipeline on the same frames on the card; one tick launches
+     B1 once and B2, B3 and B4 once a stream.
    - MultiStreamSession with 8 streams: every stream commits its move and
      reaches its FEN; a checkpoint saved mid-game and resumed into a fresh
      session makes the same commits on the same ticks.
@@ -71,11 +87,12 @@ the last line:
 Kernel launch counts are set to 0 just before each path and read just
 after it: the plain path must launch B1 and none of B2-B4, the enhanced
 path all four, with exactly one B3 (histograms + LUTs) and one B4 launch
-per CLAHE call, the streams path all four; B1's 1080p launches must take
-the TMA kernel. On the streams path the counts are set to 0 just before
-each call of a MultiStreamPipeline or MultiStreamSession and read just
-after it, so the single-stream pipelines it is compared with add nothing. The line before the last is the kernels' JSON record (its
-launches summed over the three paths); the last line is
+per CLAHE call, the exact path none, the streams path all four; B1's
+1080p launches must take the TMA kernel. On the exact and streams paths
+the counts are set to 0 just before each call of the path's pipelines
+and sessions and read just after it, so the pipelines they are compared
+with add nothing. The line before the last is the kernels' JSON record
+(its launches summed over the paths); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -101,7 +118,8 @@ from chessboard_vision_tpu_torch.kernels import score_matmul as sm
 from chessboard_vision_tpu_torch.models import pipeline as tp
 from chessboard_vision_tpu_torch.models.enhancer import correct_lighting
 from chessboard_vision_tpu_torch.ops import enhance as tenh
-from chessboard_vision_tpu_torch.ops import matmul_resample as mr
+from chessboard_vision_tpu_torch.ops import warp as warp_ops
+from chessboard_vision_tpu_torch.ops.canny import canny
 from chessboard_vision_tpu_torch.ops.color import planar_bgr2lab
 from chessboard_vision_tpu_torch.ops.hough_conv import edge_planes
 from chessboard_vision_tpu_torch.ops.layout import to_planar
@@ -281,7 +299,7 @@ def library_mm(basis, pf):
 
 def score_matmul_phase(pipe, frame, smi):
     """B1 vs its plain version at the main path's shapes."""
-    gray, _ = pipe.preprocess(torch.from_numpy(to_planar(frame)).to(DEVICE))
+    gray, _ = pipe.preprocess(on_card(frame))  # HWC: the gather warp
     planes = edge_planes(gray, pipe.consts.conv_dims).planes_flat
     basis, kvalid = pipe.consts.conv_plan.basis, pipe.consts.conv_plan.kvalid
     g = torch.Generator(device=DEVICE).manual_seed(0)
@@ -337,9 +355,10 @@ def score_matmul_phase(pipe, frame, smi):
 
 def enhancement_kernels_phase(pipe, frame, smi):
     """B2-B4 vs their plain versions at the enhanced path's 1080p shapes."""
-    planar = torch.from_numpy(to_planar(frame)).to(DEVICE)
-    board = mr.warp_board_color(planar, pipe._tile_plan, pipe._tile_dims, pipe._tile_index)
-    board = correct_lighting(board)  # what the bilateral is handed on the path
+    # The HWC camera frame's board from the gather warp, lit as the path
+    # lights it: what the bilateral is handed on the path.
+    board = warp_ops.frame_to_board(on_card(frame), pipe.consts.dg)
+    board = correct_lighting(board.movedim(-1, -3))
     g = torch.Generator(device=DEVICE).manual_seed(1)
     rand = torch.randint(0, 256, board.shape, device=DEVICE, generator=g, dtype=torch.uint8)
     records = []
@@ -461,76 +480,117 @@ def _compare_outputs(a, b, where):
                   f"{where} {f} not within tolerance")
 
 
-def pipeline_phase(session, camera, rng, chunk, label, smi):
-    pipe = session.pipeline
-    occ0 = initial_occupancy()
-    occ1 = occ0.copy()
-    occ1[4, 1], occ1[4, 3] = False, True  # e2 -> e4
-    truth = {(f, r) for f in range(8) for r in range(8) if occ0[f, r]}
-    state = pipe.capture_reference(pipe.init_state(), camera.render(occ0, rng))
-    state, out = pipe.step(state, camera.render(occ0, rng))
-    host = tp.outputs_to_numpy(out)
-    check(host.occupancy.shape == (64,), "occupancy shape")
+def _check_clean(host, truth, where):
+    """A clean frame's occupancy equals the rendered truth; each square
+    that differs is printed first."""
+    check(host.occupancy.shape == (64,), f"{where}: occupancy shape")
     got = tp.occupancy_to_set(host.occupancy)
     for sq in sorted(got ^ truth):
         i = sq[1] * 8 + sq[0]
-        phase(label, f"square {sq}: occupied {bool(host.occupancy[i])}, truth {sq in truth}, "
+        phase(where, f"square {sq}: occupied {bool(host.occupancy[i])}, truth {sq in truth}, "
               f"method {int(host.method[i])}, radius {int(host.radius[i])}, "
               f"confidence {float(host.confidence[i])!r}")
-    check(got == truth, f"{label}: clean-frame occupancy != rendered truth")
-    phase(label, f"clean {WIDTH}x{HEIGHT} frame: occupancy equals the rendered truth")
+    check(got == truth, f"{where}: clean-frame occupancy != rendered truth")
 
-    distinct = [camera.render(occ0, rng) for _ in range(8)] + [
-        camera.render(occ1, rng) for _ in range(8)
-    ]
-    # first half e2 on e2, second half on e4
-    frames = np.stack([distinct[(2 * i // chunk) * 8 + i % 8] for i in range(chunk)])
-    # The session's smart-scan set at the start position (occupied squares
-    # and legal destinations): a moved piece on a same-shade square can sit
-    # under the visual-delta gate, and the session forces these squares.
-    s2c = session._smart_scan_set()
-    check(set(truth) <= s2c, "smart-scan set misses an occupied square")
-    seq_state = state
-    seq_outs = []
+
+def on_card(frames):
+    """Host frames as a tensor on the card: a pipeline keeps a tensor's
+    layout, so an HWC one takes the gather warp."""
+    return torch.from_numpy(np.ascontiguousarray(frames)).to(DEVICE)
+
+
+def step_many_matches_steps(pipe, state, frames, s2c, where):
+    """step_many over frames equals the sequential steps (bool/i32 exactly,
+    f32 within tolerance, and the final states); returns the host outputs
+    of the sequential steps."""
+    seq_state, seq_outs = state, []
     for fr in frames:
         seq_state, o = pipe.step(seq_state, fr, squares_to_check=s2c)
         seq_outs.append(tp.outputs_to_numpy(o))
     many_state, many = pipe.step_many(state, frames, squares_to_check=s2c)
     many = tp.outputs_to_numpy(many)
-    for i in range(chunk):
-        _compare_outputs(
-            tp.StepOutputs(*(f[i] for f in many)), seq_outs[i], f"{label} step_many frame {i}"
-        )
+    for i in range(len(frames)):
+        _compare_outputs(tp.StepOutputs(*(f[i] for f in many)), seq_outs[i],
+                         f"{where} step_many frame {i}")
     for x, y in zip(tp.state_to_numpy(seq_state), tp.state_to_numpy(many_state)):
         for a, b in zip(x, y):
             check(a.dtype == b.dtype and (np.array_equal(a, b) or np.allclose(
-                a, b, rtol=F32_RTOL, atol=F32_ATOL)), f"{label}: step_many state differs")
-    final = {(f, r) for f in range(8) for r in range(8) if occ1[f, r]}
-    check(tp.occupancy_to_set(many.occupancy[-1]) == final, f"{label}: occupancy after e2e4 != truth")
-    phase(label, f"step_many over {chunk} frames equals {chunk} sequential steps; "
-          "final occupancy shows e2e4")
+                a, b, rtol=F32_RTOL, atol=F32_ATOL)), f"{where}: step_many state differs")
+    return seq_outs
 
-    # Timing: chained steps (state threaded through), device-synchronized.
-    n = chunk // 2
+
+def chained_ms(pipe, state, frames, s2c):
+    """ms a frame of chained steps (state threaded through), on the host
+    clock with the device synchronized at both ends."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    st = state
-    for fr in frames[:n]:
-        st, o = pipe.step(st, fr, squares_to_check=s2c)
+    for fr in frames:
+        state, _ = pipe.step(state, fr, squares_to_check=s2c)
     torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) * 1e3 / n
-    t0 = time.perf_counter()
-    st, o = pipe.step_many(state, frames, squares_to_check=s2c)
-    tp.outputs_to_numpy(o)
-    many_ms = (time.perf_counter() - t0) * 1e3 / chunk
-    phase(label, f"{WIDTH}x{HEIGHT} step {step_ms:.3f} ms/frame, step_many(K={chunk}) "
-          f"{many_ms:.3f} ms/frame incl. upload and readback, on {smi}")
-    return step_ms, many_ms
+    return (time.perf_counter() - t0) * 1e3 / len(frames)
 
 
-def session_phase(corners, camera, rng, label, use_enhancer):
-    session = calibrated_session(corners, (WIDTH, HEIGHT), DEVICE, use_enhancer=use_enhancer)
+def pipeline_phase(session, camera, rng, chunk, label, smi):
+    """The session's pipeline on the same frames three ways: planar host
+    arrays, HWC host arrays (taken planar on the card: the matmul resample)
+    and HWC tensors on the card (the gather warp). A clean frame's
+    occupancy equals the truth each way, step_many equals sequential steps,
+    and e2e4 shows; ms a frame each way."""
+    pipe = session.pipeline
+    occ0 = initial_occupancy()
+    occ1 = occ0.copy()
+    occ1[4, 1], occ1[4, 3] = False, True  # e2 -> e4
+    truth, final = _occ_set(occ0), _occ_set(occ1)
+    state = pipe.capture_reference(pipe.init_state(), camera.render(occ0, rng))
+    clean = camera.render(occ0, rng)
+    clean_occ = {}
+    for layout, fr in (("planar", to_planar(clean)), ("HWC on the card", on_card(clean)),
+                       ("HWC", clean)):
+        state_l, out = pipe.step(state, fr)
+        host = tp.outputs_to_numpy(out)
+        _check_clean(host, truth, f"{label} {layout}")
+        clean_occ[layout] = host.occupancy
+    state = state_l
+    check(all(np.array_equal(o, clean_occ["HWC"]) for o in clean_occ.values()),
+          f"{label}: the clean frame's occupancy differs between the layouts")
+    phase(label, f"clean {WIDTH}x{HEIGHT} frame as planar and HWC host arrays (matmul "
+          "resample) and as an HWC tensor on the card (gather warp): occupancy equals the "
+          "rendered truth each way")
+
+    distinct = [camera.render(occ0, rng) for _ in range(8)] + [
+        camera.render(occ1, rng) for _ in range(8)
+    ]
+    # first half e2 on e2, second half on e4
+    hwc = np.stack([distinct[(2 * i // chunk) * 8 + i % 8] for i in range(chunk)])
+    # The session's smart-scan set at the start position (occupied squares
+    # and legal destinations): a moved piece on a same-shade square can sit
+    # under the visual-delta gate, and the session forces these squares.
+    s2c = session._smart_scan_set()
+    check(set(truth) <= s2c, "smart-scan set misses an occupied square")
+    for layout, frames in (("HWC", hwc), ("planar", np.ascontiguousarray(np.moveaxis(hwc, -1, 1))),
+                           ("HWC on the card", on_card(hwc))):
+        outs = step_many_matches_steps(pipe, state, frames, s2c, f"{label} {layout}")
+        check(tp.occupancy_to_set(outs[-1].occupancy) == final,
+              f"{label} {layout}: occupancy after e2e4 != truth")
+        step_ms = chained_ms(pipe, state, frames[: chunk // 2], s2c)
+        t0 = time.perf_counter()
+        _, o = pipe.step_many(state, frames, squares_to_check=s2c)
+        tp.outputs_to_numpy(o)
+        many_ms = (time.perf_counter() - t0) * 1e3 / chunk
+        phase(label, f"{layout} frames: step_many over {chunk} frames equals {chunk} sequential "
+              f"steps, final occupancy shows e2e4; {WIDTH}x{HEIGHT} step {step_ms:.3f} ms/frame, "
+              f"step_many(K={chunk}) {many_ms:.3f} ms/frame incl. upload (none for frames on "
+              f"the card) and readback, on {smi}")
+
+
+def session_phase(corners, camera, rng, label, use_enhancer, hough_backend="auto"):
+    session = calibrated_session(corners, (WIDTH, HEIGHT), DEVICE, use_enhancer=use_enhancer,
+                                 hough_backend=hough_backend)
     check(session.pipeline.with_enhancer == use_enhancer, f"{label}: session pipeline kind")
+    if hough_backend == "auto":  # conv on the card, as the pipeline's docstring says
+        hough_backend = "conv" if torch.device(DEVICE).type == "cuda" else "exact"
+    check(session.pipeline.hough_backend == hough_backend,
+          f"{label}: the session's Hough backend is {session.pipeline.hough_backend}")
     moves = ["e2e4"]
     committed, script, n_frames = play(
         session, camera, moves, rng, log=lambda m: phase(label, m)
@@ -605,6 +665,78 @@ def run_path(label, use_enhancer, corners, camera, rng, chunk, smi):
     return counts
 
 
+EXACT_FRAMES = 16  # the exact phase's sequence: half on the start position, half after e2e4
+# Chained steps timed per turn. The exact step is ~6300 device ops: the
+# profiler's post-processing takes ~1 s per 1000 of them, so the exact
+# step is profiled over 2 steps only.
+TIMED_EXACT = 8
+
+
+def exact_phase(corners, camera, rng, smi):
+    """The exact Hough backend on rendered 1080p HWC host frames, with every
+    count set to 0 just before its calls and read just after: a clean
+    frame's occupancy equals the truth, step_many equals sequential steps,
+    a GameSession on the exact backend commits e2e4, and no kernel
+    launches (the exact backend is plain torch; B1 is conv's). Then the
+    conv pipeline on the same frames: square decisions agree on >= 99.5%
+    (tests/test_regression_clip.py's bar), and both backends' ms a frame
+    (in turns), device busy, ops and host syncs a step."""
+    occ0 = initial_occupancy()
+    occ1 = occ0.copy()
+    occ1[4, 1], occ1[4, 3] = False, True  # e2 -> e4
+    ref, clean = camera.render(occ0, rng), camera.render(occ0, rng)
+    frames = np.stack([camera.render(o, rng)
+                       for o in [occ0] * (EXACT_FRAMES // 2) + [occ1] * (EXACT_FRAMES // 2)])
+    with counted(collections.Counter()) as got:
+        session = calibrated_session(corners, (WIDTH, HEIGHT), DEVICE, hough_backend="exact")
+        pipe = session.pipeline
+        check(pipe.hough_backend == "exact" and pipe.consts.conv_plan is None,
+              "exact: the pipeline built the conv backend")
+        state = pipe.capture_reference(pipe.init_state(), ref)
+        state, out = pipe.step(state, clean)
+        exact_occ = [tp.outputs_to_numpy(out).occupancy]
+        _check_clean(tp.outputs_to_numpy(out), _occ_set(occ0), "exact")
+        s2c = session._smart_scan_set()
+        outs = step_many_matches_steps(pipe, state, frames, s2c, "exact")
+        check(tp.occupancy_to_set(outs[-1].occupancy) == _occ_set(occ1),
+              "exact: occupancy after e2e4 != truth")
+        exact_occ += [o.occupancy for o in outs]
+        session_phase(corners, camera, rng, "exact", False, hough_backend="exact")
+    check(not any(got.values()), f"the exact path launched kernels: {got}")
+    phase("exact", f"clean frame equals the truth, step_many over {EXACT_FRAMES} frames equals "
+          f"{EXACT_FRAMES} sequential steps, e2e4 shows and the session committed it; "
+          f"kernel launches on this path: {got}")
+
+    conv = tp.VisionPipeline(pipe.geometry, hough_backend="conv", device=DEVICE)
+    cstate = conv.capture_reference(conv.init_state(), ref)
+    cstate, out = conv.step(cstate, clean)
+    conv_occ = [tp.outputs_to_numpy(out).occupancy]
+    st = cstate
+    for fr in frames:
+        st, out = conv.step(st, fr, squares_to_check=s2c)
+        conv_occ.append(tp.outputs_to_numpy(out).occupancy)
+    differ = int(sum((a != b).sum() for a, b in zip(exact_occ, conv_occ)))
+    agreement = 1.0 - differ / (64 * len(exact_occ))
+    check(agreement >= 0.995, f"exact vs conv: {agreement:.2%} of square decisions agree")
+
+    ms, syncs = {"conv": 0.0, "exact": 0.0}, {"conv": 0, "exact": 0}
+    runs = {"conv": (conv, cstate), "exact": (pipe, state)}
+    for name in ("conv", "exact", "exact", "conv"):
+        before = canny.host_syncs
+        ms[name] += chained_ms(*runs[name], frames[:TIMED_EXACT], s2c) / 2
+        syncs[name] += canny.host_syncs - before
+    lines = []
+    for name, (p, st) in runs.items():
+        it = itertools.cycle(frames)
+        busy, ops = device_profile(lambda: p.step(st, next(it), squares_to_check=s2c), 2)
+        lines.append(f"{name} {ms[name]:.3f} ms/frame, device busy {busy:.3f} ms "
+                     f"({busy / ms[name]:.1%}), {ops:.0f} device kernels+copies, "
+                     f"{syncs[name] / (2 * TIMED_EXACT):.2f} host syncs a step")
+    phase("exact", f"exact vs conv on the same {len(exact_occ)} frames: {agreement:.2%} of square "
+          f"decisions agree ({differ} differ); {WIDTH}x{HEIGHT} chained steps: "
+          f"{'; '.join(lines)}; on {smi}")
+
+
 # The first moves of the streams' 16 positions; the session plays the first 8.
 STREAM_MOVES = ("e2e4", "d2d4", "g1f3", "c2c4", "b1c3", "e2e3", "d2d3", "g2g3",
                 "b2b3", "f2f4", "a2a4", "h2h4", "c2c3", "f2f3", "b2b4", "h2h3")
@@ -676,11 +808,13 @@ def streams_vs_single(ms, single, ref, ticks, label, launches):
     refresh) and each stream through the single-stream pipeline ``single``
     with a state of its own: every stream's outputs must equal its
     pipeline's, and each tick launches B1 once. ``ms``'s launches go into
-    ``launches``. Returns (state, host outputs of the last tick)."""
+    ``launches``. Returns (state, host outputs of the last tick). The
+    shared-geometry tick warps HWC host frames by gather; the single
+    pipelines take those frames as tensors on the card, their gather route."""
     n = ms.n_streams
     with counted(launches):
         state = ms.capture_reference(ms.init_state(), ref)
-    singles = [single.capture_reference(single.init_state(), ref[s]) for s in range(n)]
+    singles = [single.capture_reference(single.init_state(), on_card(ref[s])) for s in range(n)]
     for t, (frames, masks, refresh) in enumerate(ticks):
         with counted(launches) as got:
             state, out = ms.step(state, frames, s2c_masks=masks, refresh=refresh)
@@ -688,7 +822,7 @@ def streams_vs_single(ms, single, ref, ticks, label, launches):
         host = tms.outputs_to_numpy(out)
         for s in range(n):
             squares = None if masks is None else tp.occupancy_to_set(masks[s])
-            singles[s], o = single.step(singles[s], frames[s], squares_to_check=squares,
+            singles[s], o = single.step(singles[s], on_card(frames[s]), squares_to_check=squares,
                                         refresh_refs=refresh is not None and bool(refresh[s]))
             _compare_outputs(_stream_outputs(host, s), tp.outputs_to_numpy(o),
                              f"{label} tick {t} stream {s}")
@@ -819,6 +953,33 @@ def streams_phase(corners, camera, g, enhanced_pipe, smi):
         time_ticks(ms16, state, [np.stack(fs) for fs in sets], smart16, "plain 16 streams", smi)
     del ms16, state
 
+    ms_exact = tms.MultiStreamPipeline(g, 8, hough_backend="exact", device=DEVICE)
+    with counted(launches):
+        state = ms_exact.capture_reference(ms_exact.init_state(), ref8)
+    syncs = canny.host_syncs
+    with counted(launches) as got:
+        state, out = ms_exact.step(state, np.stack(sets[0][:8]), s2c_masks=_all_masks(8))
+    syncs = canny.host_syncs - syncs
+    check(not any(got.values()), f"exact 8 streams: launches in one tick {got}, want none")
+    host = tms.outputs_to_numpy(out)
+    for s in range(8):
+        check(tp.occupancy_to_set(host.step.occupancy[s]) == _occ_set(occs[s]),
+              f"exact 8 streams: stream {s} occupancy != rendered truth")
+    phase("streams", f"exact 8 streams: every stream's occupancy equals its rendered truth; one "
+          f"tick launched no kernel and made {syncs} host syncs")
+    ticks = [np.stack(fs[:8]) for fs in sets]
+    with counted(launches) as got:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for fr in ticks:
+            state, _ = ms_exact.step(state, fr, s2c_masks=_all_masks(8))
+        torch.cuda.synchronize()
+    tick_ms = (time.perf_counter() - t0) * 1e3 / len(ticks)
+    check(not any(got.values()), f"exact 8 streams: the timed ticks launched {got}")
+    phase("streams", f"exact 8 streams: {tick_ms:.3f} ms/tick ({8e3 / tick_ms:.1f} frames/s "
+          f"aggregate; {len(ticks)} chained ticks incl. upload), on {smi}")
+    del ms_exact, state
+
     corners2 = corners + np.array([[14, 9], [-11, 6], [8, -7], [-12, -10]])
     g2 = BoardGeometry.from_calibration(corners2, display_size=(WIDTH, HEIGHT))
     camera2 = SynthCamera(corners2, frame_size=(HEIGHT, WIDTH), board_px=g2.board_size)
@@ -834,9 +995,11 @@ def streams_phase(corners, camera, g, enhanced_pipe, smi):
         check_tick(got, 2, f"{kind} per-stream geometry", enhanced)
         host = tms.outputs_to_numpy(out)
         for s, geo in enumerate((g, g2)):
+            # Per-stream plans resample planar frames (the N-stream step
+            # permutes HWC ones): the single pipelines get the same.
             pipe = tp.VisionPipeline(geo, with_enhancer=enhanced, device=DEVICE)
-            st = pipe.capture_reference(pipe.init_state(), refs[s])
-            st, o = pipe.step(st, frames[s], squares_to_check=ALL_SQUARES)
+            st = pipe.capture_reference(pipe.init_state(), to_planar(refs[s]))
+            st, o = pipe.step(st, to_planar(frames[s]), squares_to_check=ALL_SQUARES)
             _compare_outputs(_stream_outputs(host, s), tp.outputs_to_numpy(o),
                              f"{kind} per-stream geometry stream {s}")
             check(tp.occupancy_to_set(host.step.occupancy[s]) == _occ_set(occs[s]),
@@ -854,8 +1017,8 @@ def streams_phase(corners, camera, g, enhanced_pipe, smi):
     check_tick(per_tick, 8, "enhanced 8 streams", enhanced=True)
     host = tms.outputs_to_numpy(out)
     for s in (0, 5):
-        st = enhanced_pipe.capture_reference(enhanced_pipe.init_state(), ref8[s])
-        st, o = enhanced_pipe.step(st, sets[0][s], squares_to_check=ALL_SQUARES)
+        st = enhanced_pipe.capture_reference(enhanced_pipe.init_state(), on_card(ref8[s]))
+        st, o = enhanced_pipe.step(st, on_card(sets[0][s]), squares_to_check=ALL_SQUARES)
         _compare_outputs(_stream_outputs(host, s), tp.outputs_to_numpy(o),
                          f"enhanced 8 streams stream {s}")
     phase("streams", f"enhanced 8 streams: streams 0 and 5 equal the single-stream enhanced "
@@ -927,6 +1090,11 @@ def multistream_session_phase(g, sets, initial):
 
 
 def main():
+    t_start = time.perf_counter()
+
+    def elapsed(what):
+        phase("time", f"{what} done at {time.perf_counter() - t_start:.0f} s")
+
     name, smi = device_phase()
     build_phase()
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions in full f32
@@ -943,6 +1111,7 @@ def main():
     frame = camera.render(initial_occupancy(), rng)
     records = [score_matmul_phase(pipe, frame, smi)]
     records += enhancement_kernels_phase(pipe, frame, smi)
+    elapsed("kernels")
 
     plain = run_path("plain", False, corners, camera, rng, CHUNK, smi)
     check(plain["score_matmul"] > 0, "the plain path never launched score_matmul")
@@ -960,12 +1129,16 @@ def main():
           f"(histograms + LUTs), {enhanced['clahe_hist']} histogram-only and "
           f"{enhanced['clahe_apply']} B4 launches, not one B3 and one B4 each")
     phase("enhanced", f"{n} CLAHE calls, each one B3 and one B4 launch")
+    elapsed("plain and enhanced paths")
+    exact_phase(corners, camera, rng, smi)
+    elapsed("exact path")
 
     streams, b1_wide_err = streams_phase(corners, camera, g, pipe, smi)
     missing = [k for k in COUNTERS if k != "clahe_hist" and streams[k] == 0]
     check(not missing, f"the streams path never launched {missing}")
     check(streams["clahe_hist"] == 0, "the streams path launched the histogram-only B3")
     records[0]["max_abs_err"] = max(records[0]["max_abs_err"], b1_wide_err)
+    elapsed("streams path")
 
     for rec in records:
         w = PATH_WRAPPER.get(rec["name"], rec["name"])

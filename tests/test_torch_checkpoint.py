@@ -7,9 +7,10 @@ of the OTHER package resumes from the file: the resumed state equals the
 saved one leaf for leaf, the next frame's StepOutputs agree with the
 original session's (bool/i32 exactly, f32 within
 tests/test_torch_pipeline.py's tolerance), and both commit the next move
-on the same frame with the same FEN. The JAX sessions are forced to the
-conv Hough backend, the port's only one. ``load_tree``'s two legacy-leaf
-rules are held to the JAX package's.
+on the same frame with the same FEN. Both packages' sessions run the conv
+Hough backend (the JAX ones forced to it, the port's naming it), so a
+checkpoint carries the same detector across. ``load_tree``'s two
+legacy-leaf rules are held to the JAX package's.
 """
 
 import functools
@@ -77,7 +78,7 @@ def _drive(session, frames):
 def _new_session(package):
     if package == "jax":
         return jax_session_mod.GameSession(headless=True)
-    return TorchSession(device="cpu")
+    return TorchSession(device="cpu", hough_backend="conv")
 
 
 @pytest.mark.parametrize("src,dst", [("jax", "port"), ("port", "jax")])
@@ -120,8 +121,8 @@ def test_game_session_checkpoint_resumes_in_the_other_package(src, dst, tmp_path
     port_sess, jax_sess = (resumed, first) if dst == "port" else (first, resumed)
     s2c = port_sess._smart_scan_set()
     _, to = port_sess.pipeline.step(port_sess.pipe_state, e5[2], squares_to_check=s2c)
-    _, jo = jax_sess.pipeline.step(jax.tree.map(jnp.array, jax_sess.pipe_state), e5[2],
-                                   squares_to_check=s2c)
+    _, jo = jax_sess.pipeline.step(jax.tree.map(jnp.array, jax_sess.pipe_state),
+                                   e5[2], squares_to_check=s2c)
     assert_outputs_match(to, jo, where="after resume")
 
     got_first, got_resumed = _drive(first, e5[2:]), _drive(resumed, e5[2:])
@@ -139,7 +140,7 @@ def _new_multi(package, n=2):
                                n_streams=n, hough_backend="conv")
     else:
         sess = TorchMultiSession(tgeo.BoardGeometry.from_calibration(DEFAULT_CORNERS),
-                                 n_streams=n, device="cpu")
+                                 n_streams=n, hough_backend="conv", device="cpu")
     sess.MOVE_COOLDOWN, sess.STABILITY_REQUIRED = 0.0, 4
     return sess
 

@@ -129,9 +129,11 @@ def test_score_matmul_refuses_bad_inputs(cuda):
         sm.score_matmul(a, a.cpu())
 
 
-def test_pipeline_on_card_matches_cpu(cuda):
-    """Two 1280x720 frames through the port on the card and on the CPU:
-    bool/i32 outputs equal, f32 outputs close, and the kernel launched."""
+@pytest.mark.parametrize("backend", ["conv", "exact"])
+def test_pipeline_on_card_matches_cpu(cuda, backend):
+    """Two 1280x720 frames through the port on the card and on the CPU,
+    with each Hough backend named on both: bool/i32 outputs equal, f32
+    outputs close."""
     h, w = 720, 1280
     corners = bench_corners(h, w)
     g = geo.BoardGeometry.from_calibration(corners, display_size=(w, h))
@@ -141,7 +143,7 @@ def test_pipeline_on_card_matches_cpu(cuda):
     frames = [cam.render(occ, rng) for _ in range(3)]
     outs = {}
     for dev in ("cpu", "cuda"):
-        pipe = tp.VisionPipeline(g, device=dev)
+        pipe = tp.VisionPipeline(g, hough_backend=backend, device=dev)
         st = pipe.capture_reference(pipe.init_state(), frames[0])
         seq = []
         for fr in frames[1:]:
@@ -178,7 +180,7 @@ def test_multistream_on_card_matches_cpu(cuda):
     ticks = [np.stack([cam.render(o, rng) for o in (occ0, occ1, occ0)]) for _ in range(2)]
     outs = {}
     for dev in ("cpu", "cuda"):
-        ms = tms.MultiStreamPipeline(g, 3, device=dev)
+        ms = tms.MultiStreamPipeline(g, 3, hough_backend="conv", device=dev)
         st = ms.capture_reference(ms.init_state(), ref)
         seq = []
         for t, frames in enumerate(ticks):
@@ -396,7 +398,7 @@ def test_enhanced_pipeline_on_card_matches_cpu(cuda):
     before = [c.launches for c in counters]
     outs = {}
     for dev in ("cpu", "cuda"):
-        pipe = tp.VisionPipeline(g, with_enhancer=True, device=dev)
+        pipe = tp.VisionPipeline(g, with_enhancer=True, hough_backend="conv", device=dev)
         st = pipe.capture_reference(pipe.init_state(), frames[0])
         seq = []
         for fr in frames[1:]:

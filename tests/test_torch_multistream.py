@@ -3,11 +3,12 @@ MultiStreamSession against the JAX package's, on the CPU.
 
 The JAX N-stream pipeline runs on the CPU as a scan over streams of the
 single-stream program; the port runs the stream-folded core (one step of
-N*64 squares). Both see the same planar 1280x720 frames (the JAX package's
-HWC branch rounds the warp differently) and start from the same state.
-StepOutputs and NoiseFsmOut must agree: bool/i32 fields exactly, f32
-fields within tests/test_torch_pipeline.py's tolerance. The JAX pipelines
-are forced to the conv Hough backend, the port's only one.
+N*64 squares). Both see the same 1280x720 frames and start from the same
+state. StepOutputs and NoiseFsmOut must agree: bool/i32 fields exactly, f32
+fields within tests/test_torch_pipeline.py's tolerance. Most cases run the
+conv Hough backend on planar frames (the matmul resample), named on both
+sides; the shared-geometry HWC tick (both packages' gather warp) and the
+exact-backend tick are held as well.
 """
 
 import jax
@@ -18,11 +19,13 @@ import torch
 
 from chessboard_vision_tpu import geometry as jgeo
 from chessboard_vision_tpu.ops import fsm as jfsm
+from chessboard_vision_tpu.ops import warp as jwarp
 from chessboard_vision_tpu.parallel.multistream import MultiStreamPipeline as JaxMulti
 from chessboard_vision_tpu.parallel.session import MultiStreamSession as JaxSession
 from chessboard_vision_tpu_torch import geometry as tgeo
 from chessboard_vision_tpu_torch.models import pipeline as tp
 from chessboard_vision_tpu_torch.ops import fsm as tfsm
+from chessboard_vision_tpu_torch.ops import warp as twarp
 from chessboard_vision_tpu_torch.ops.layout import positions_to_mask, to_planar
 from chessboard_vision_tpu_torch.parallel import multistream as tms
 from chessboard_vision_tpu_torch.parallel.session import MultiStreamSession as TorchSession
@@ -158,7 +161,7 @@ def shared_pipes():
     g = jgeo.BoardGeometry.from_calibration(DEFAULT_CORNERS)
     return (JaxMulti(g, n_streams=3, hough_backend="conv"),
             tms.MultiStreamPipeline(tgeo.BoardGeometry.from_calibration(DEFAULT_CORNERS),
-                                    n_streams=3, device="cpu"))
+                                    n_streams=3, hough_backend="conv", device="cpu"))
 
 
 def test_shared_geometry_matches_jax_with_per_stream_masks_and_refresh(shared_pipes):
@@ -203,7 +206,7 @@ def test_per_stream_geometry_matches_jax():
     jm = JaxMulti([jgeo.BoardGeometry.from_calibration(c) for c in corners], n_streams=3,
                   hough_backend="conv")
     tm = tms.MultiStreamPipeline([tgeo.BoardGeometry.from_calibration(c) for c in corners],
-                                 n_streams=3, device="cpu")
+                                 n_streams=3, hough_backend="conv", device="cpu")
     rng = np.random.default_rng(22)
     ref = _frames(rng, [OCC0] * 3, corners)
     js = jm.capture_reference(jm.init_state(), ref)
@@ -286,10 +289,10 @@ def test_enhanced_streams_match_single_stream_enhanced_pipelines():
     outputs equal the port's single-stream enhanced pipeline (held against
     the JAX package with its TPU kernels in tests/test_torch_pipeline.py)."""
     g = tgeo.BoardGeometry.from_calibration(DEFAULT_CORNERS)
-    tm = tms.MultiStreamPipeline(g, n_streams=2, with_enhancer=True,
+    tm = tms.MultiStreamPipeline(g, n_streams=2, with_enhancer=True, hough_backend="conv",
                                  enhancer_profile=ENHANCER_PROFILE, device="cpu")
     single = tp.VisionPipeline(g, with_enhancer=True, enhancer_profile=ENHANCER_PROFILE,
-                               device="cpu")
+                               hough_backend="conv", device="cpu")
     rng = np.random.default_rng(25)
     ref = _frames(rng, [OCC0, OCC0])
     frames = _frames(rng, [OCC0, E4])
@@ -309,10 +312,10 @@ def test_enhanced_per_stream_geometry_matches_single_stream_enhanced_pipelines()
     equal the single-stream enhanced pipeline of that rig."""
     corners = [DEFAULT_CORNERS, SHIFTED]
     geos = [tgeo.BoardGeometry.from_calibration(c) for c in corners]
-    tm = tms.MultiStreamPipeline(geos, n_streams=2, with_enhancer=True,
+    tm = tms.MultiStreamPipeline(geos, n_streams=2, with_enhancer=True, hough_backend="conv",
                                  enhancer_profile=ENHANCER_PROFILE, device="cpu")
     singles = [tp.VisionPipeline(g, with_enhancer=True, enhancer_profile=ENHANCER_PROFILE,
-                                 device="cpu") for g in geos]
+                                 hough_backend="conv", device="cpu") for g in geos]
     rng = np.random.default_rng(28)
     ref = _frames(rng, [OCC0, OCC0], corners)
     frames = _frames(rng, [E4, D4], corners)
@@ -348,7 +351,7 @@ def test_session_commits_the_same_moves_and_fens_as_jax():
     g = jgeo.BoardGeometry.from_calibration(DEFAULT_CORNERS)
     jsess = JaxSession(g, n_streams=4, hough_backend="conv")
     tsess = TorchSession(tgeo.BoardGeometry.from_calibration(DEFAULT_CORNERS), n_streams=4,
-                         device="cpu")
+                         hough_backend="conv", device="cpu")
     committed = {}
     for name, sess in (("jax", jsess), ("port", tsess)):
         sess.MOVE_COOLDOWN = 0.0
@@ -362,6 +365,61 @@ def test_session_commits_the_same_moves_and_fens_as_jax():
     for i, b in enumerate(boards):
         assert tsess.streams[i].game.get_fen() == jsess.streams[i].game.get_fen() == b.fen()
         assert tsess.to_pgn(i) == jsess.to_pgn(i)
+
+
+def _hwc_tick_inputs(seed):
+    rng = np.random.default_rng(seed)
+    ref = np.moveaxis(_frames(rng, [OCC0] * 3), 1, -1)
+    frames = np.moveaxis(_frames(rng, [OCC0, E4, D4]), 1, -1)
+    masks = np.stack([positions_to_mask({(4, 1), (4, 3)}), np.ones(64, bool),
+                      positions_to_mask({(3, 1), (3, 3)})])
+    return ref, frames, masks
+
+
+def test_shared_geometry_hwc_tick_matches_jax_gather_warp():
+    """3 streams of HWC camera frames under one geometry: both packages
+    warp them by gather (the JAX package keeps host HWC frames HWC in this
+    mode), so the squares are bit-equal to the JAX warp's and every
+    output equals the JAX tick's."""
+    g = jgeo.BoardGeometry.from_calibration(DEFAULT_CORNERS)
+    tg = tgeo.BoardGeometry.from_calibration(DEFAULT_CORNERS)
+    jm = JaxMulti(g, n_streams=3, hough_backend="conv")
+    tm = tms.MultiStreamPipeline(tg, n_streams=3, hough_backend="conv", device="cpu")
+    ref, frames, masks = _hwc_tick_inputs(27)
+    want = np.asarray(jax.jit(jax.vmap(jwarp.frame_to_squares, in_axes=(0, None)))(
+        jnp.asarray(frames), jwarp.DeviceGeometry.from_host(g)))
+    got = twarp.frame_to_squares(torch.from_numpy(frames), tm.pipe.consts.dg)
+    assert got.dtype == torch.uint8 and got.shape == want.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+    js = jm.capture_reference(jm.init_state(), ref)
+    ts = tm.capture_reference(tm.init_state(), ref)
+    assert_multi_states_match(ts, js)
+    js, jo = jm.step(js, frames, s2c_masks=masks, refresh=[False, True, False])
+    ts, to = tm.step(ts, frames, s2c_masks=masks, refresh=[False, True, False])
+    assert_multi_match(to, jo, where="HWC tick")
+    assert_multi_states_match(ts, js)
+
+
+def test_exact_backend_tick_matches_jax():
+    """hough_backend="exact" (the port's auto on the CPU): the folded core
+    tiles the Hough params to 3*64 squares; a 3-stream HWC tick equals the
+    JAX exact tick, and each stream shows its position."""
+    g = jgeo.BoardGeometry.from_calibration(DEFAULT_CORNERS)
+    jm = JaxMulti(g, n_streams=3, hough_backend="exact")
+    tm = tms.MultiStreamPipeline(tgeo.BoardGeometry.from_calibration(DEFAULT_CORNERS),
+                                 n_streams=3, device="cpu")
+    assert tm.pipe.hough_backend == "exact" and tm.consts.conv_plan is None
+    assert tm.consts.params.max_radius.shape == (3 * 64,)
+    ref, frames, masks = _hwc_tick_inputs(29)
+    js = jm.capture_reference(jm.init_state(), ref)
+    ts = tm.capture_reference(tm.init_state(), ref)
+    js, jo = jm.step(js, frames, s2c_masks=np.ones((3, 64), bool))
+    ts, to = tm.step(ts, frames, s2c_masks=np.ones((3, 64), bool))
+    assert_multi_match(to, jo, where="exact tick")
+    for i, occ in enumerate((OCC0, E4, D4)):
+        assert tp.occupancy_to_set(to.step.raw_occupancy[i]) == {
+            (f, r) for f in range(8) for r in range(8) if occ[f, r]
+        }
 
 
 def test_session_surface():

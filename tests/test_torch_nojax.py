@@ -3,9 +3,10 @@ that has none of them.
 
 A subprocess blocks the three imports (``sys.modules[name] = None``),
 imports every module of the port and runs one plain and one enhanced
-pipeline step and one 2-stream tick on the CPU on frames from the
-numpy-only renderer (tools/synth.py), with the geometry from the port's
-own copy. The port's
+pipeline step (conv Hough, planar frames), one exact-backend step on an
+HWC tensor (the gather warp) and one 2-stream tick on the CPU on frames
+from the numpy-only renderer (tools/synth.py), with the geometry from the
+port's own copy. The port's
 copies of the JAX package's host modules (``geometry``, ``rules``) give the
 same arrays, moves and FEN as the originals.
 """
@@ -34,19 +35,21 @@ sys.modules["jax"] = None
 sys.modules["cv2"] = None
 sys.modules["chessboard_vision_tpu"] = None
 import numpy as np
+import torch
 import chessboard_vision_tpu_torch as port
 
 names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
 assert len(names) >= 25, names
-for name in ("ops.fsm", "parallel", "parallel.multistream", "parallel.session",
-             "utils.checkpoint"):
+for name in ("ops.fsm", "ops.hough", "ops.warp", "parallel", "parallel.multistream",
+             "parallel.session", "utils.checkpoint"):
     assert port.__name__ + "." + name in names, name
 
 from chessboard_vision_tpu_torch import geometry as geo
 from chessboard_vision_tpu_torch.models.pipeline import (
     VisionPipeline, occupancy_to_set, outputs_to_numpy)
+from chessboard_vision_tpu_torch.ops.layout import to_planar
 from chessboard_vision_tpu_torch.tools.synth import SynthCamera, bench_corners, initial_occupancy
 
 corners = bench_corners(720, 1280)
@@ -55,17 +58,19 @@ cam = SynthCamera(corners, frame_size=(720, 1280), board_px=620)
 rng = np.random.default_rng(0)
 occ = initial_occupancy()
 truth = {(f, r) for f in range(8) for r in range(8) if occ[f, r]}
-for enhance in (False, True):
-    pipe = VisionPipeline(g, with_enhancer=enhance, device="cpu")
-    state = pipe.capture_reference(pipe.init_state(), cam.render(occ, rng))
-    state, out = pipe.step(state, cam.render(occ, rng))
+for enhance, backend, layout in ((False, "conv", to_planar), (True, "conv", to_planar),
+                                 (False, "auto", torch.as_tensor)):
+    pipe = VisionPipeline(g, with_enhancer=enhance, hough_backend=backend, device="cpu")
+    state = pipe.capture_reference(pipe.init_state(), layout(cam.render(occ, rng)))
+    state, out = pipe.step(state, layout(cam.render(occ, rng)))
     out = outputs_to_numpy(out)
     assert all(np.isfinite(np.asarray(f, np.float64)).all() for f in out)
     got = occupancy_to_set(out.occupancy)
-    assert got == truth, (enhance, sorted(got ^ truth))
+    assert got == truth, (enhance, backend, sorted(got ^ truth))
+assert pipe.hough_backend == "exact"
 from chessboard_vision_tpu_torch.parallel import MultiStreamPipeline
 from chessboard_vision_tpu_torch.parallel.multistream import outputs_to_numpy as multi_to_numpy
-ms = MultiStreamPipeline(g, n_streams=2, device="cpu")
+ms = MultiStreamPipeline(g, n_streams=2, hough_backend="conv", device="cpu")
 state = ms.capture_reference(ms.init_state(), np.stack([cam.render(occ, rng)] * 2))
 state, out = ms.step(state, np.stack([cam.render(occ, rng) for _ in range(2)]))
 out = multi_to_numpy(out)

@@ -2,9 +2,12 @@
 
 Both sessions see the same rendered 1280x720 frames of one scripted move
 and must commit the same move on the same frame and reach the same FEN.
-The JAX session's pipeline is forced to the conv Hough backend (the port's
-only one) by patching the name its module builds pipelines from, in this
-test only. The enhanced sessions (``"use_enhancer": true``) run the JAX
+Unpatched, both sessions pick the Hough backend with ``auto``: exact on the
+CPU in both packages. The conv cases force the JAX session's pipeline to
+conv by patching the name its module builds pipelines from, in this test
+only, and name conv on the port's session. Both sessions take the host
+HWC camera frames planar (the matmul resample), as the JAX ``step`` takes
+a host frame. The enhanced sessions (``"use_enhancer": true``) run the JAX
 package's XLA forms of the bilateral and CLAHE, which its ``auto`` backend
 picks on a CPU: 26 frames with the TPU kernels in interpret mode would take
 minutes. tests/test_torch_pipeline.py holds the enhanced step against the
@@ -47,11 +50,12 @@ def _drive(session, frames):
     return None
 
 
-def _parity(monkeypatch, config, uci):
-    monkeypatch.setattr(
-        jax_session_mod, "VisionPipeline",
-        functools.partial(JaxPipeline, hough_backend="conv"),
-    )
+def _parity(monkeypatch, config, uci, backend="conv"):
+    if backend == "conv":
+        monkeypatch.setattr(
+            jax_session_mod, "VisionPipeline",
+            functools.partial(JaxPipeline, hough_backend="conv"),
+        )
     rng = np.random.default_rng(11)
     script = chess.Board()
     frame0 = make_board_frame(occupancy_of(script), rng)
@@ -59,13 +63,14 @@ def _parity(monkeypatch, config, uci):
     frames = [make_board_frame(occupancy_of(script), rng) for _ in range(26)]
 
     jsess = jax_session_mod.GameSession(headless=True)
-    tsess = TorchSession(device="cpu")
+    tsess = TorchSession(device="cpu", hough_backend=backend)
     assert jsess.on_calibration_requested(None, config=dict(config))
     assert tsess.on_calibration_requested(config=dict(config))
     for s in (jsess, tsess):
         s.MOVE_COOLDOWN = 0.0
         s.capture_reference_frame(frame0)
-    assert jsess.pipeline.hough_backend == "conv"
+    want = "conv" if backend == "conv" else "exact"
+    assert jsess.pipeline.hough_backend == tsess.pipeline.hough_backend == want
     assert tsess.pipeline.with_enhancer == jsess.pipeline.with_enhancer == bool(
         config.get("use_enhancer"))
 
@@ -78,6 +83,12 @@ def _parity(monkeypatch, config, uci):
 
 def test_port_session_commits_same_move_and_fen_as_jax(monkeypatch):
     _parity(monkeypatch, CONFIG, "e2e4")
+
+
+def test_auto_backend_session_commits_same_move_and_fen_as_unpatched_jax(monkeypatch):
+    """``auto`` on both sides, the JAX session unpatched: exact Hough in
+    both packages on the CPU, the same move on the same frame."""
+    _parity(monkeypatch, CONFIG, "e2e4", backend="auto")
 
 
 def test_enhanced_session_commits_same_move_and_fen_as_jax(monkeypatch):
