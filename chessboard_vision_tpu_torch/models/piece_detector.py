@@ -113,12 +113,19 @@ def detect_all(
     hough_backend: str = "conv",
     hough_params=None,
     hough_bounds=None,
+    use_smoothing: bool = True,
+    use_delta: bool = True,
 ) -> Tuple[PieceState, DetectAllOutputs]:
-    """One detect_all_pieces step (with the reference's delta gate and
-    5-frame smoothing on). gray: (64, H, W) u8 preprocessed squares;
-    gray_flat: optional (64, H*W) view of the same gray. The Hough backend
-    and its constants go to ops/piece.detect_pieces: conv_plan/conv_dims
-    for 'conv', hough_params/hough_bounds for 'exact'."""
+    """One detect_all_pieces step. gray: (64, H, W) u8 preprocessed
+    squares; gray_flat: optional (64, H*W) view of the same gray. The Hough
+    backend and its constants go to ops/piece.detect_pieces:
+    conv_plan/conv_dims for 'conv', hough_params/hough_bounds for 'exact'.
+
+    ``use_delta=False`` turns the delta gate off for the squares of
+    ``s2c_mask`` when ``s2c_given``: only they are detected afresh, the
+    rest report their cache. ``use_smoothing=False`` reports the raw
+    result of this frame instead of the 5-frame vote (the stateless
+    convenience calls of api.py use both)."""
     if gray_flat is None:
         gray_flat = gray.reshape(gray.shape[0], -1)
     changed = _mean_diff_exceeds(
@@ -127,7 +134,8 @@ def detect_all(
     visual_changes = changed
 
     forced = s2c_given & s2c_mask
-    should = forced | (~forced & (~state.has_cache | changed))
+    delta_path = ~s2c_given | use_delta
+    should = forced | (~forced & delta_path & (~state.has_cache | changed))
     use_fresh = should | ~state.has_cache
 
     fresh = piece_ops.detect_pieces(
@@ -146,8 +154,12 @@ def detect_all(
 
     hist, hist_len = _push_history(state.hist, state.hist_len, raw_has.to(torch.int32))
 
-    reported = _stable_detection(hist, hist_len)
-    ref_update = should & (raw_has == reported)
+    if use_smoothing:
+        reported = _stable_detection(hist, hist_len)
+        ref_update = should & (raw_has == reported)
+    else:
+        reported = raw_has
+        ref_update = should
     new_state = PieceState(
         ref_gray=torch.where(ref_update[:, None], gray_flat, state.ref_gray),
         has_ref=state.has_ref | ref_update,

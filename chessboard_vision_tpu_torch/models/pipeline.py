@@ -297,20 +297,23 @@ class VisionPipeline:
         board = enhance_planar(board, self.enhancer_profile)
         return planar_bgr2gray(board).reshape(-1)[self._ext_index]
 
-    def _step_impl(self, state, frame, s2c_mask, s2c_given, refresh_refs):
+    def _step_impl(self, state, frame, s2c_mask, s2c_given, refresh_refs,
+                   use_smoothing=True, use_delta=True):
         gray, gray_cd = self.preprocess(frame)
         return self._step_core(
-            state, gray, s2c_mask, s2c_given, refresh_refs, self.consts, gray_change=gray_cd
+            state, gray, s2c_mask, s2c_given, refresh_refs, self.consts, gray_change=gray_cd,
+            use_smoothing=use_smoothing, use_delta=use_delta,
         )
 
     def _step_core(self, state, gray, s2c_mask, s2c_given, refresh_refs, consts: StepConsts,
-                   gray_change=None):
+                   gray_change=None, use_smoothing=True, use_delta=True):
         """Everything after preprocessing: detection cascade, change model,
         temporal state, on (n, H, W) squares with ``consts`` for the same n
         squares. ``s2c_given`` and ``refresh_refs`` are () for the whole
         board or (n,) per square (the stream-folded N-stream step, where
         each stream's 64 squares carry that stream's flags).
-        ``gray_change`` is the change model's own-blur gray (None: gray)."""
+        ``gray_change`` is the change model's own-blur gray (None: gray).
+        ``use_smoothing``/``use_delta`` go to the detector (detect_all)."""
         gray_flat = change_ops.flatten_pixels(gray)
         # Post-move forced re-reference, applied with this frame's gray.
         refresh_px = refresh_refs if refresh_refs.dim() == 0 else refresh_refs[:, None]
@@ -324,7 +327,8 @@ class VisionPipeline:
             piece_in, gray, consts.masks, s2c_mask, s2c_given,
             consts.conv_plan, consts.conv_dims,
             gray_flat=gray_flat, hough_backend=self.hough_backend,
-            hough_params=consts.params, hough_bounds=self.bounds, **self._det_kwargs,
+            hough_params=consts.params, hough_bounds=self.bounds,
+            use_smoothing=use_smoothing, use_delta=use_delta, **self._det_kwargs,
         )
         gcd = gray_flat if gray_change is None else change_ops.flatten_pixels(gray_change)
         cdet = change_ops.detect(
@@ -393,16 +397,23 @@ class VisionPipeline:
         frame,
         squares_to_check=None,
         refresh_refs: bool = False,
+        use_smoothing: bool = True,
+        use_delta: bool = True,
     ):
         """Process one frame: (H, W, 3) HWC or (3, H, W) planar BGR u8, a
         host array (HWC taken planar) or a tensor (in its layout).
         squares_to_check: optional set of (file, rank) to force a fresh
         detection on; refresh_refs forces a visual re-reference from this
-        frame first. Returns (state, StepOutputs on the device)."""
+        frame first. ``use_smoothing=False`` reports this frame's raw
+        detection instead of the 5-frame vote; ``use_delta=False`` with
+        squares_to_check detects only those squares afresh (detect_all).
+        ``state`` is not written to: the step returns a new one. Returns
+        (state, StepOutputs on the device)."""
         given = squares_to_check is not None
         mask = positions_to_mask(squares_to_check) if given else np.zeros(64, bool)
         frame_dev, s2c_mask, flags = self._upload(frame, mask, (given, refresh_refs))
-        return self._step_impl(state, frame_dev, s2c_mask, flags[0], flags[1])
+        return self._step_impl(state, frame_dev, s2c_mask, flags[0], flags[1],
+                               use_smoothing, use_delta)
 
     def step_many(
         self,
@@ -410,6 +421,8 @@ class VisionPipeline:
         frames,
         squares_to_check=None,
         refresh_first: bool = False,
+        use_smoothing: bool = True,
+        use_delta: bool = True,
     ):
         """Process a chunk of K frames: (K, H, W, 3) or (K, 3, H, W) u8, routed
         as in ``step``.
@@ -417,8 +430,8 @@ class VisionPipeline:
         One H2D copy for the chunk, a device-side loop of K steps with the
         same per-frame semantics as K sequential ``step`` calls, outputs
         stacked to (K, 64) on the device (one D2H via outputs_to_numpy).
-        squares_to_check applies to every frame; refresh_first re-references
-        from frame 0 only."""
+        squares_to_check, use_smoothing and use_delta apply to every frame;
+        refresh_first re-references from frame 0 only."""
         given = squares_to_check is not None
         mask = positions_to_mask(squares_to_check) if given else np.zeros(64, bool)
         frames_dev, s2c_mask, flags = self._upload(
@@ -428,10 +441,18 @@ class VisionPipeline:
         outs = []
         for i in range(frames_dev.shape[0]):
             state, out = self._step_impl(
-                state, frames_dev[i], s2c_mask, given_d, refresh_d if i == 0 else no_refresh
+                state, frames_dev[i], s2c_mask, given_d, refresh_d if i == 0 else no_refresh,
+                use_smoothing, use_delta,
             )
             outs.append(out)
         return state, StepOutputs(*(torch.stack(f) for f in zip(*outs)))
+
+    def warp_board(self, frame) -> np.ndarray:
+        """The top-down board of an (H, W, 3) HWC BGR u8 frame, (B, B, 3) u8
+        on the host, by the gather warp (ops/warp.py) on the pipeline's
+        device (UI, calibration and api.extract_grid)."""
+        frame_dev = torch.as_tensor(np.asarray(frame, np.uint8), device=self.device)
+        return warp_ops.frame_to_board(frame_dev, self.consts.dg).cpu().numpy()
 
 
 def is_hwc(frames) -> bool:

@@ -13,22 +13,41 @@ reference.
 in the JAX package's checkpoint format (utils/checkpoint.py), so a
 checkpoint of either package resumes in the other.
 
+Recorded sources: ``cooldown_frames`` counts the post-move cooldown in
+processed frames instead of wall seconds (tools/process_video.py sets it
+from the file's FPS). Piece types: ``on_frame`` keeps 8-deep windows of
+the method-masked radii and the ring-coverage extents of frames that agree
+with the rules board; ``calibrate_piece_types`` fits the type model on the
+current (known) position, ``full_fen`` reads the placement off the board
+and ``verify_position`` holds it against the rules board.
+
+``headless`` defaults to True here, where the JAX package's GameSession
+defaults to False: the port has no renderer yet, and ``headless=False``
+raises (ROADMAP A17).
+
 Not ported yet (ROADMAP.md Queue A): drift re-calibration, the renderer/UI
-overlay, piece-type classification, the frame-counted cooldown of recorded
-sources and the reference's visual-rank scan quirk.
+overlay and the reference's visual-rank scan quirk (A17).
 """
 
 from __future__ import annotations
 
 import threading
 import time
+from collections import deque
 from typing import Optional
 
 import numpy as np
 
 from chessboard_vision_tpu_torch import geometry as geo
 from chessboard_vision_tpu_torch.device import resolve_device
-from chessboard_vision_tpu_torch.rules import GameState, chess
+from chessboard_vision_tpu_torch.rules import GameState, chess, classify_piece_colors
+from chessboard_vision_tpu_torch.rules.piece_types import (
+    PieceTypeClassifier,
+    average_extents,
+    average_radii,
+    mask_radii_by_method,
+    occupancy_to_full_fen,
+)
 from chessboard_vision_tpu_torch.utils.config import (
     CALIBRATION_FILE,
     COLOR_PROFILE_FILE,
@@ -38,6 +57,7 @@ from chessboard_vision_tpu_torch.utils.config import (
 )
 from chessboard_vision_tpu_torch.utils.checkpoint import load_tree, read_meta, save_tree
 from chessboard_vision_tpu_torch.utils.logging import get_logger
+from chessboard_vision_tpu_torch.utils.profiling import FpsCounter
 from chessboard_vision_tpu_torch.models.pipeline import (
     VisionPipeline,
     occupancy_to_set,
@@ -52,9 +72,14 @@ class GameSession:
     MOVE_COOLDOWN = 2.0  # seconds after a committed move
     FULL_SCAN_PERIOD = 30  # full 64-square scan every Nth frame
 
-    def __init__(self, device="cuda", hough_backend: str = "auto"):
+    def __init__(self, device="cuda", hough_backend: str = "auto", headless: bool = True):
         """``hough_backend`` goes to the VisionPipeline: "auto" is exact on a
-        CPU device and conv on the card."""
+        CPU device and conv on the card. ``headless=False`` (the renderer)
+        is not ported yet and raises."""
+        if not headless:
+            raise NotImplementedError(
+                "GameSession(headless=False): the renderer/UI overlay is not ported yet "
+                "(ROADMAP A17)")
         self.device = resolve_device(device, "GameSession")
         self.hough_backend = hough_backend
         self.board_lock = threading.RLock()
@@ -66,11 +91,27 @@ class GameSession:
         self.noise: Optional[NoiseHandler] = None
         self.player_color = None
 
+        self.fps = FpsCounter()
         self.frame_count = 0
         self.stable_occupancy = None
         self.stable_count = 0
         self.last_move_time = 0.0
+        self.last_move_frame = -(10**9)
+        # Post-move cooldown in processed frames (None: MOVE_COOLDOWN wall
+        # seconds). A recorded source runs faster than real time, where a
+        # wall-clock cooldown drops moves: process_video sets this from the
+        # file's FPS.
+        self.cooldown_frames: Optional[int] = None
+        self.last_outputs = None  # the last step's StepOutputs, host numpy
         self._refresh_next = False
+        # Piece types (rules/piece_types.py): radii and extents of frames
+        # whose occupancy matches the rules board, reset when the expected
+        # position changes.
+        self._radius_window = deque(maxlen=8)
+        self._extent_window = deque(maxlen=8)
+        self._radius_window_occ = None
+        self._types_updated_here = False
+        self.piece_types: Optional[PieceTypeClassifier] = None
         self.log = get_logger("session")
 
     # -- calibration -----------------------------------------------------
@@ -89,7 +130,13 @@ class GameSession:
         """Build the pipeline and control-plane components from calibration.
         ``"use_enhancer": true`` puts the 5-stage enhancement ahead of
         detection in the same step, with the color profile of
-        ``config["enhancer_profile"]`` or, failing that, color_profile.json."""
+        ``config["enhancer_profile"]`` or, failing that, color_profile.json.
+        ``"auto_recalibrate": true`` (drift re-calibration) is not ported
+        yet and raises."""
+        if config.get("auto_recalibrate", False):
+            raise NotImplementedError(
+                "GameSession: \"auto_recalibrate\" (drift re-calibration) is not ported yet "
+                "(ROADMAP A17, drift)")
         self.config = config
         self.player_color = config.get("player_color")
         geometry = geo.BoardGeometry.from_config(config)
@@ -133,6 +180,7 @@ class GameSession:
     def on_frame(self, img: np.ndarray):
         """Process one camera frame; returns the committed move or None."""
         self.frame_count += 1
+        self.fps.update()
         squares_to_check = None
         if self.frame_count % self.FULL_SCAN_PERIOD != 0 and self.game is not None:
             squares_to_check = self._smart_scan_set()
@@ -143,10 +191,12 @@ class GameSession:
             self.pipe_state, img, squares_to_check=squares_to_check, refresh_refs=refresh
         )
         out = outputs_to_numpy(out)
+        self.last_outputs = out
         vision_occupied = occupancy_to_set(out.occupancy)
         visual_changes = occupancy_to_set(out.visual_changes)
 
         noise_state, _ = self.noise.process(visual_changes)
+        self._track_radii(vision_occupied, out)
         return self._process_stable_move(vision_occupied, noise_state)
 
     # -- stability + inference -------------------------------------------
@@ -168,7 +218,10 @@ class GameSession:
                 self.stable_count = 1
 
             now = time.time()
-            cooldown_ok = (now - self.last_move_time) > self.MOVE_COOLDOWN
+            if self.cooldown_frames is not None:
+                cooldown_ok = (self.frame_count - self.last_move_frame) > self.cooldown_frames
+            else:
+                cooldown_ok = (now - self.last_move_time) > self.MOVE_COOLDOWN
             if (
                 self.stable_count >= self.STABILITY_REQUIRED
                 and cooldown_ok
@@ -181,6 +234,7 @@ class GameSession:
                         if move in self.game.board.legal_moves:
                             self.game.board.push(move)
                             self.last_move_time = now
+                            self.last_move_frame = self.frame_count
                             # Forced re-reference inside the next frame's step.
                             self._refresh_next = True
                             self.noise.reset()
@@ -198,6 +252,84 @@ class GameSession:
     def on_move_detected(self, move) -> bool:
         """Subclass hook; True accepts the move locally."""
         return True
+
+    # -- piece-type classification (full FEN from vision) ----------------
+
+    def _track_radii(self, vision_occupied, out):
+        """Accumulate per-square (radius, extent) features of frames whose
+        occupancy matches the rules board; the windows reset when the
+        expected position changes. Radii are masked by cascade method (only
+        Hough-family squares measured a circle). Once a position fills the
+        window, the type model (if calibrated) takes its rules-labeled
+        samples (PieceTypeClassifier.update)."""
+        with self.board_lock:
+            expected = self.game.get_board_occupancy()
+        if expected != self._radius_window_occ:
+            self._radius_window.clear()
+            self._extent_window.clear()
+            self._radius_window_occ = set(expected)
+            self._types_updated_here = False
+        if vision_occupied == expected:
+            self._radius_window.append(mask_radii_by_method(out.radius, out.method))
+            self._extent_window.append(np.asarray(out.profile_extent))
+        if (
+            self.piece_types is not None
+            and not self._types_updated_here
+            and len(self._radius_window) == self._radius_window.maxlen
+        ):
+            with self.board_lock:
+                self.piece_types.update(
+                    average_radii(np.stack(self._radius_window)),
+                    self.game.board,
+                    extents=average_extents(np.stack(self._extent_window)),
+                )
+            self._types_updated_here = True
+
+    def calibrate_piece_types(self):
+        """Fit the piece-type model on the CURRENT (known) position, e.g.
+        the initial setup after capture_reference, where all 12 classes
+        are visible. Returns the radius-centroid dict, or None when no
+        frame agreeing with the rules board has been seen yet."""
+        if not self._radius_window:
+            return None
+        clf = PieceTypeClassifier()
+        with self.board_lock:
+            clf.calibrate(
+                average_radii(np.stack(self._radius_window)),
+                self.game.board,
+                extents=average_extents(np.stack(self._extent_window)),
+            )
+        self.piece_types = clf
+        return clf.centroids
+
+    def full_fen(self):
+        """The FULL FEN placement read from vision (piece types from the
+        type model), independent of the rules board. None until
+        calibrate_piece_types has run and the window holds frames."""
+        if self.piece_types is None or self.last_outputs is None or not self._radius_window:
+            return None
+        out = self.last_outputs
+        occ = np.asarray(out.occupancy)
+        colors = classify_piece_colors(
+            np.asarray(out.center_mean), occ, np.asarray(out.corner_mean)
+        )
+        chars = self.piece_types.classify(
+            average_radii(np.stack(self._radius_window)), occ, colors,
+            extents=average_extents(np.stack(self._extent_window)),
+        )
+        return occupancy_to_full_fen(occ.reshape(8, 8).T, chars, piece_colors=colors)
+
+    def verify_position(self):
+        """(match, got, want): the vision full-FEN placement against the
+        rules board's, at piece-type granularity; (None, None, want) while
+        the type model is not ready."""
+        with self.board_lock:
+            want = self.game.get_fen().split()[0]
+        got = self.full_fen()
+        if got is None:
+            return None, None, want
+        got = got.split()[0]
+        return got == want, got, want
 
     # -- checkpoint / resume ---------------------------------------------
 

@@ -12,8 +12,12 @@ the last line:
    one nvcc process each, all started together; the seconds each took and
    nvcc's register, shared-memory and spill lines.
 3. kernels vs their plain versions at the 1080p shapes, each timed by its
-   device time under torch.profiler (plain, kernel, kernel, plain; the
-   kernel's CUDA-event time per call beside it), with the least time the
+   device time under torch.profiler (plain, kernel, kernel, plain; a
+   kernel's time is the median of its launches' records, which records
+   the profiler drops do not lower, or, where the profiler saw fewer than
+   half of them, the median between CUDA events with the stream held
+   behind a sleep kernel; the kernel's CUDA-event time per call beside
+   it), with the least time the
    card could take (bound) and, where one exists, one PyTorch call that
    computes the same function:
    - B1 score matmul: the real (7168, 3200) Hough basis with the pooled
@@ -38,6 +42,11 @@ the last line:
    - B4 CLAHE LUT apply on the same three unpadded planes with their LUTs:
      bit-equal, two launches bit-equal.
    B3's and B4's lines give their time beside their earlier designs' too.
+   Then B2-B4 at the whole 1080x1920 frame (api.enhance_frame's shape):
+   B2 on the rendered frame and on random u8 (bit-equal to plain; the
+   frame's flat background is a best case for its color-weight lookups),
+   B3 and B4 on its Lab-L, each with its device time, the profiler's
+   records a call seen, its held-stream CUDA-event time and its bound.
 4. plain path: VisionPipeline(device="cuda") on rendered 1920x1080 frames
    of the benchmark's board layout, each handed over three ways: planar
    host arrays and HWC host arrays (the camera's layout, which the step
@@ -83,15 +92,44 @@ the last line:
    - MultiStreamSession with 8 streams: every stream commits its move and
      reaches its FEN; a checkpoint saved mid-game and resumed into a fresh
      session makes the same commits on the same ticks.
+8. footage path (tools/process_video.py, api.py) on rendered 1920x1080
+   frames with piece types (per-square colors, per-type disc radii):
+   - process_video.run_capture over a scripted game held in memory (4
+     start frames, 28 after e2e4, 28 after e7e5; a reader at 30 fps,
+     skip_frames=1, the card has no cv2 to decode a file): commits e2e4 and
+     e7e5, reaches the script's FEN, and its JSONL timeline and PGN equal
+     the expected text; B1 launches once a processed frame, B2-B4 never.
+     ms a processed frame, session.fps and the on_frame p50/p95 of a
+     StageTimer synchronized on the card. With the moves 22 frames apart,
+     cooldown_seconds=2.0 (60 frames) drops e7e5 and 0.5 (15 frames)
+     keeps it. With "use_enhancer": true the game commits too and all four
+     kernels launch, one B3 and one B4 a CLAHE call.
+   - api on 1280x720 frames, the capture its geometry assumes (as the
+     JAX api's; the benchmark's board layout at that size, a 620 px
+     board), a frame pair (start, then e2e4; the default disc size, as
+     tests/test_api.py's pair): detect_pieces and frame_to_fen equal the
+     rendered truth, detect_changes holds e2 and e4 and at most 8 squares,
+     extract_grid gives 64 crops of the CPU's shapes;
+     frame_to_full_fen calibrated on the start position reads a midgame
+     position exactly; ms a call of each entry point (host clock, the
+     median of 5 calls after one). A GameSession on the 1080p footage
+     calibrates its piece types on the start position, commits e2e4 and
+     verify_position() matches.
+   - api.enhance_frame at (1080, 1920), (240, 320) and (719, 1277): at each
+     shape B2, B3 and B4 bit-equal to their plain versions on the card
+     (CLAHE's 135x240 tiles at 1080p; the odd width takes the apply's byte
+     path), the output within ROADMAP Queue C 7's limits of the same call on
+     the CPU; ms a call at each shape.
 
 Kernel launch counts are set to 0 just before each path and read just
 after it: the plain path must launch B1 and none of B2-B4, the enhanced
 path all four, with exactly one B3 (histograms + LUTs) and one B4 launch
-per CLAHE call, the exact path none, the streams path all four; B1's
-1080p launches must take the TMA kernel. On the exact and streams paths
-the counts are set to 0 just before each call of the path's pipelines
-and sessions and read just after it, so the pipelines they are compared
-with add nothing. The line before the last is the kernels' JSON record
+per CLAHE call, the exact path none, the streams path all four, the
+footage path all four; B1's 1080p launches must take the TMA kernel. On
+the exact, streams and footage paths the counts are set to 0 just before
+each call of the path's pipelines, sessions and entry points and read
+just after it, so the pipelines and plain versions they are compared with
+add nothing. The line before the last is the kernels' JSON record
 (its launches summed over the paths); the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -126,11 +164,22 @@ from chessboard_vision_tpu_torch.ops.layout import to_planar
 from chessboard_vision_tpu_torch.geometry import BoardGeometry
 from chessboard_vision_tpu_torch.ops.layout import positions_to_mask
 from chessboard_vision_tpu_torch.parallel import multistream as tms
+from chessboard_vision_tpu_torch import api
 from chessboard_vision_tpu_torch.parallel.session import MultiStreamSession
 from chessboard_vision_tpu_torch.rules import chess as rules_chess
+from chessboard_vision_tpu_torch.rules.fen import occupancy_to_fen
+from chessboard_vision_tpu_torch.rules.pgn import game_to_pgn
+from chessboard_vision_tpu_torch.session.game_session import GameSession
+from chessboard_vision_tpu_torch.tools import process_video
 from chessboard_vision_tpu_torch.tools.demo_pipeline import calibrated_session, occupancy_of, play
 from chessboard_vision_tpu_torch.utils import checkpoint as ckpt
-from chessboard_vision_tpu_torch.tools.synth import SynthCamera, bench_corners, initial_occupancy
+from chessboard_vision_tpu_torch.utils.profiling import FpsCounter, StageTimer
+from chessboard_vision_tpu_torch.tools.synth import (
+    SynthCamera,
+    bench_corners,
+    board_render_maps,
+    initial_occupancy,
+)
 
 HEIGHT, WIDTH = 1080, 1920
 SCORE_RTOL, SCORE_ATOL = 2e-4, 2e-3  # tests/test_hough_conv.py's tolerance
@@ -184,40 +233,112 @@ def device_ms(fn, iters, before=None):
     time from torch.profiler over iters calls (after a warmup), which gaps
     while the host issues the next call do not inflate. before(), when
     given, runs ahead of each call and its kernels are left out."""
-    return device_profile(fn, iters, before)[0]
+    busy = device_profile(fn, iters, before)[0]
+    if busy is None:  # the profiler lost every record: the events' time instead
+        phase("time", "torch.profiler saw no device records; CUDA-event time instead")
+        busy = cuda_ms(fn, iters)
+        if before:
+            busy = cuda_ms(lambda: (before(), fn()), iters) - cuda_ms(before, iters)
+    return busy
+
+
+def profiled(body, iters):
+    """torch.profiler over iters calls of body(), the card synchronized at
+    the end: (the device events' keys, the profile)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with warnings.catch_warnings():  # one profiling cycle: its notice does not apply
+        warnings.simplefilter("ignore", UserWarning)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                body()
+            torch.cuda.synchronize()
+    return {e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA}, prof
 
 
 def device_profile(fn, iters, before=None):
     """device_ms's busy ms per call, and the device kernels and copies per
-    call."""
+    call; (None, None) when the profiler saw no device record."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    def profiled(body):
-        with warnings.catch_warnings():  # one profiling cycle: its notice does not apply
-            warnings.simplefilter("ignore", UserWarning)
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                for _ in range(iters):
-                    body()
-                torch.cuda.synchronize()
-        return {e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA}, prof
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    skip = profiled(before)[0] if before else set()
-    _, prof = profiled((lambda: (before(), fn())) if before else fn)
+    skip = profiled(before, iters)[0] if before else set()
+    _, prof = profiled((lambda: (before(), fn())) if before else fn, iters)
     dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.key not in skip]
+    if not dev:
+        return None, None
     busy_us = sum(e.self_device_time_total for e in dev)
     return busy_us / 1e3 / iters, sum(e.count for e in dev) / iters
 
 
+def busy_text(busy, ops, wall_ms, per):
+    """device_profile's numbers for a line, beside the wall time they share."""
+    if busy is None:
+        return "device busy and ops not measured (torch.profiler saw no device record)"
+    return (f"device busy {busy:.3f} ms{per} ({busy / wall_ms:.1%} of the wall), {ops:.0f} "
+            f"device kernels+copies{per}")
+
+
+def held_ms(fn, iters):
+    """Median device ms of one call of a wrapper that launches one kernel,
+    from CUDA events recorded between the calls while a sleep kernel holds
+    the stream: every call is enqueued before the card starts on them, so
+    the events bracket the kernel and not the host's launch. Holds longer
+    and again if the sleep ended before the host was done."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    cycles = 20_000_000  # ~10 ms at the H100's boost clock
+    for _ in range(4):
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(iters + 1)]
+        held = torch.cuda.Event()
+        torch.cuda._sleep(cycles)
+        held.record()
+        events[0].record()
+        for e in events[1:]:
+            fn()
+            e.record()
+        still_held = not held.query()
+        torch.cuda.synchronize()
+        if still_held:
+            return float(np.median([a.elapsed_time(b) for a, b in zip(events, events[1:])]))
+        cycles *= 4
+    raise RuntimeError(f"held_ms: the host did not enqueue {iters} calls within a held stream")
+
+
+def launch_ms(fn, iters):
+    """Device ms of one call of a wrapper that launches one kernel: the
+    median duration of its records under torch.profiler over iters calls
+    (after a warmup), and the records seen a call. Late in a long run the
+    profiler drops records (0.70 of 10 B2 launches seen, and in one run all
+    of 100), which lower a busy time per call but not the median; where it
+    saw fewer than half of them, the median of held_ms instead."""
+    from torch.autograd import DeviceType
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    _, prof = profiled(fn, iters)
+    us = [e.device_time_total for e in prof.events() if e.device_type == DeviceType.CUDA]
+    check(len(us) <= iters, f"launch_ms: {len(us)} device records for {iters} calls of "
+          "a one-kernel wrapper")
+    if 2 * len(us) < iters:
+        phase("time", f"torch.profiler saw {len(us)} of {iters} launches; held-stream CUDA "
+              "events instead")
+        return held_ms(fn, iters), len(us) / iters
+    return float(np.median(us)) / 1e3, len(us) / iters
+
+
 def kernel_vs_plain_ms(kernel, plain, iters):
-    """Device ms per call of the kernel and of its plain version, measured in
-    turns (plain, kernel, kernel, plain), and the kernel's CUDA-event ms."""
+    """Device ms per call of the kernel (launch_ms) and of its plain version
+    (device_ms), measured in turns (plain, kernel, kernel, plain), and the
+    kernel's CUDA-event ms."""
     ms = {kernel: 0.0, plain: 0.0}
     for fn in (plain, kernel, kernel, plain):
-        ms[fn] += device_ms(fn, iters) / 2
+        ms[fn] += (launch_ms(fn, iters)[0] if fn is kernel else device_ms(fn, iters)) / 2
     return ms[kernel], ms[plain], cuda_ms(kernel, iters)
 
 
@@ -379,13 +500,15 @@ def enhancement_kernels_phase(pipe, frame, smi):
         check(torch.equal(got, again), f"bilateral {label}: two launches differ")
     kernel_ms, plain_ms, event_ms = kernel_vs_plain_ms(
         lambda: kb.bilateral_planar(board), lambda: kb.bilateral_reference(board), 20)
+    rand_ms = launch_ms(lambda: kb.bilateral_planar(rand), 20)[0]
     C, H, W = board.shape
     bound_ms, bound_by = bound(2 * C * H * W, BILATERAL_TAPS * BILATERAL_FLOPS_PER_TAP * H * W,
                                F32_FLOPS)
     phase("kernel", f"{share('bilateral', bound_ms, kernel_ms)} (CUDA events "
           f"{event_ms * 1e3:.1f} us), plain {plain_ms * 1e3:.1f} us, bound "
-          f"{bound_ms * 1e3:.1f} us ({bound_by}), no library call; color-weight table "
-          f"bit-equal to torch.exp; on {smi}")
+          f"{bound_ms * 1e3:.1f} us ({bound_by}), no library call; on random u8 of the "
+          f"same shape {rand_ms * 1e3:.1f} us ({bound_ms / rand_ms:.0%} of the bound); "
+          f"color-weight table bit-equal to torch.exp; on {smi}")
     records.append(dict(name="bilateral", route="cuda",
                         source="chessboard_vision_tpu_torch/kernels/bilateral.cu",
                         replaces="chessboard_vision_tpu/ops/pallas/bilateral.py:87",
@@ -434,7 +557,7 @@ def enhancement_kernels_phase(pipe, frame, smi):
         lambda: kc.clahe_hist_luts(lab_l, th, tw, tiles, clip),
         lambda: kc.clahe_hist_luts_reference(lab_l, th, tw, tiles, clip), 200)
     library_ms = device_ms(bincount, 200)
-    hist_only_ms = device_ms(lambda: kc.clahe_hist(lab_l, th, tw, tiles), 200)
+    hist_only_ms = launch_ms(lambda: kc.clahe_hist(lab_l, th, tw, tiles), 200)[0]
     hist, lut = kc.clahe_hist_luts(lab_l, th, tw, tiles, clip)
     lut_phase_ms = device_ms(lambda: kc.clahe_luts_from_hist(hist, th * tw, clip), 200)
     # Bytes: the plane read once, the i32 histograms and f32 LUTs written;
@@ -729,8 +852,7 @@ def exact_phase(corners, camera, rng, smi):
     for name, (p, st) in runs.items():
         it = itertools.cycle(frames)
         busy, ops = device_profile(lambda: p.step(st, next(it), squares_to_check=s2c), 2)
-        lines.append(f"{name} {ms[name]:.3f} ms/frame, device busy {busy:.3f} ms "
-                     f"({busy / ms[name]:.1%}), {ops:.0f} device kernels+copies, "
+        lines.append(f"{name} {ms[name]:.3f} ms/frame, {busy_text(busy, ops, ms[name], '')}, "
                      f"{syncs[name] / (2 * TIMED_EXACT):.2f} host syncs a step")
     phase("exact", f"exact vs conv on the same {len(exact_occ)} frames: {agreement:.2%} of square "
           f"decisions agree ({differ} differ); {WIDTH}x{HEIGHT} chained steps: "
@@ -860,8 +982,7 @@ def time_ticks(ms, state, frame_sets, masks, label, smi, ticks=TIMED_TICKS):
     busy_ms, ops = device_profile(tick, 5)
     phase("streams", f"{label}: {wall_ms:.3f} ms/tick ({n * 1e3 / wall_ms:.1f} frames/s "
           f"aggregate; host pack+upload {pack_ms:.3f} ms, step enqueue incl. pack "
-          f"{enqueue_ms:.3f} ms), device busy {busy_ms:.3f} ms/tick ({busy_ms / wall_ms:.1%} "
-          f"of the wall), {ops:.0f} device kernels+copies/tick, peak memory "
+          f"{enqueue_ms:.3f} ms), {busy_text(busy_ms, ops, wall_ms, '/tick')}, peak memory "
           f"{peak_gb:.3f} GB (torch.cuda.max_memory_allocated); on {smi}")
     return box[0]
 
@@ -1089,6 +1210,381 @@ def multistream_session_phase(g, sets, initial):
           f"{SESSION_SAVE_TICK} resumed into a fresh session made the same commits")
 
 
+# The footage phase's game: 4 start frames, then FOOTAGE_RUN frames after
+# each move; the reader reports FOOTAGE_FPS. The reference is taken from
+# frame 3, so processed frame i (the timeline's "frame") is rendered frame
+# i + 2: e2e4 shows on processed frame 2, e7e5 on frame 30.
+FOOTAGE_FPS, FOOTAGE_START, FOOTAGE_RUN = 30, 4, 28
+FOOTAGE_SHOWS = (2, 30)
+# Frames from a move's first frame to its commit: 20 stable frames (the
+# 19 after the first), plus up to 2 while the 5-frame vote flips and 2
+# while the noise gate settles.
+COMMIT_LAG = range(19, 24)
+# The cooldown clip: e2e4 shown for 20 frames, then e7e5 (shows on frame
+# 22, ~22 frames after e2e4's commit); 2.0 s is 60 frames at 30 fps, 0.5 s
+# is 15.
+COOLDOWN_E2E4_FRAMES, COOLDOWN_SHOWS = 20, (2, 22)
+MIDGAME_FEN = "r1bqkbnr/pppp1ppp/2n5/4p3/4P3/5N2/PPPP1PPP/RNBQKB1R w KQkq - 4 3"
+# process_video --pgn's document of the game.
+FOOTAGE_PGN = ('[Event "digitized recording"]\n[Site "?"]\n[Date "????.??.??"]\n[Round "?"]\n'
+               '[White "?"]\n[Black "?"]\n[Result "*"]\n\n1. e4 e5 *\n')
+# api.enhance_frame's shapes: the whole 1080p frame, the JAX test's crop
+# and an odd crop whose width is not a multiple of 4 (top, left, h, w).
+ENHANCE_CROPS = ((0, 0, 1080, 1920), (420, 800, 240, 320), (181, 321, 719, 1277))
+# ROADMAP Queue C 7: the enhancement's f32 stages (Lab -> BGR, the sharpen
+# of one-level differences) on two devices.
+ENHANCE_MAX_DIFF, ENHANCE_FRACTION = 9, 1e-3
+
+
+def typed_frames(camera, boards, seed):
+    """One frame of each rules board with its piece types (per-square
+    colors, per-type disc radii), each from its own seed, rendered in
+    threads."""
+    maps = [board_render_maps(b) for b in boards]
+
+    def render(i):
+        occ, colors, radii = maps[i]
+        return camera.render(occ, np.random.default_rng((seed, i)), colors, radii)
+
+    with ThreadPoolExecutor(8) as pool:
+        return list(pool.map(render, range(len(boards))))
+
+
+def _boards(*ucis):
+    """The rules board after each prefix of the moves, the start first."""
+    out = [rules_chess.Board()]
+    for uci in ucis:
+        b = rules_chess.Board(out[-1].fen())
+        b.push_uci(uci)
+        out.append(b)
+    return out
+
+
+def expected_timeline(lines, boards, shows, moves):
+    """The expected JSONL lines of the commits of ``moves`` (boards[k + 1]
+    the position after moves[k]) on the commit frames of the timeline
+    ``lines``, each checked to lie COMMIT_LAG frames after the move shows on
+    frame shows[k]. Returns (lines, commit frames)."""
+    frames = [json.loads(line).get("frame") for line in lines[: len(moves)]]
+    check(len(frames) == len(moves) and all(
+        isinstance(f, int) and f - show in COMMIT_LAG for f, show in zip(frames, shows)),
+        f"footage: commit frames {frames} for moves shown on frames {list(shows)}")
+    return [json.dumps({"frame": f, "move": m, "fen": b.fen()})
+            for f, m, b in zip(frames, moves, boards[1:])], frames
+
+
+def timed_session():
+    """A GameSession on the card with the move cooldown off (as run_capture
+    builds one without a cooldown), a 0.25 s FPS window, and its on_frame
+    timed by a StageTimer that waits for the card; (session, timer)."""
+    session = GameSession(device=DEVICE)
+    session.MOVE_COOLDOWN = 0.0
+    session.fps = FpsCounter(window=0.25)
+    timer = StageTimer(sync=lambda _: torch.cuda.synchronize())
+    on_frame = session.on_frame
+
+    def timed_on_frame(img):
+        with timer.stage("on_frame", sync_value=True):
+            return on_frame(img)
+
+    session.on_frame = timed_on_frame
+    return session, timer
+
+
+def timing(session, timer, wall_ms):
+    """The footage line's times: on_frame's mean, p50 and p95, the session's
+    FPS, and the whole call with the session's set-up (pipeline build,
+    reference capture)."""
+    r = timer.report()["on_frame"]
+    return (f"{r['mean_ms']:.3f} ms a processed frame (on_frame mean; p50 {r['p50_ms']:.3f}, "
+            f"p95 {r['p95_ms']:.3f} ms, StageTimer synchronized on the card), session.fps "
+            f"{session.fps.fps:.1f}, the whole call {wall_ms:.1f} ms with the set-up")
+
+
+def footage_phase(corners, camera, smi):
+    """Recorded footage through process_video.run_capture and the api on the
+    card, with every count set to 0 just before each call of the path and
+    read just after it. Returns the path's counts."""
+    launches = collections.Counter()
+    start, after1, after2 = _boards("e2e4", "e7e5")
+    t0 = time.perf_counter()
+    frames = typed_frames(camera, [start] * FOOTAGE_START + [after1] * FOOTAGE_RUN
+                          + [after2] * FOOTAGE_RUN, 20)
+    phase("footage", f"rendered {len(frames)} frames of {WIDTH}x{HEIGHT} with piece types in "
+          f"{time.perf_counter() - t0:.1f} s")
+    config = {"corners": np.asarray(corners).tolist(), "player_color": "white",
+              "orientation_flipped": False, "display_size": [WIDTH, HEIGHT]}
+
+    # The scripted game, plain, with the session's on_frame timed.
+    session, timer = timed_session()
+    with tempfile.TemporaryDirectory() as tmp, counted(launches) as got:
+        path = os.path.join(tmp, "timeline.jsonl")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        moves, fen, n = process_video.run_capture(
+            process_video.FrameReader(frames, FOOTAGE_FPS), config, skip_frames=1,
+            out_path=path, session=session)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        with open(path) as fh:
+            timeline = fh.read()
+    want_lines, commits = expected_timeline(timeline.splitlines(), [start, after1, after2],
+                                            FOOTAGE_SHOWS, ["e2e4", "e7e5"])
+    want_lines.append(json.dumps({"final_fen": after2.fen(), "moves": ["e2e4", "e7e5"],
+                                  "frames": len(frames) - 3}))
+    check(moves == ["e2e4", "e7e5"] and fen == after2.fen(),
+          f"footage: committed {moves}, FEN {fen}, scripted e2e4 e7e5 -> {after2.fen()}")
+    check(timeline == "\n".join(want_lines) + "\n",
+          f"footage: the timeline differs from the expected text:\n{timeline}")
+    pgn = game_to_pgn(moves, headers={"Event": "digitized recording"}, claim_draws=True)
+    check(pgn == FOOTAGE_PGN, f"footage: the PGN differs from the expected text:\n{pgn}")
+    want = dict.fromkeys(COUNTERS, 0) | {"score_matmul": n}
+    check(got == want, f"footage: launches {got}, want {want} (B1 once a processed frame)")
+    phase("footage", f"run_capture over {len(frames)} frames in memory ({n} processed): "
+          f"committed {moves} on frames {commits}, FEN and JSONL timeline and "
+          f"PGN as expected; launches {got}; {timing(session, timer, wall_ms)}; on {smi}")
+
+    # The frame-counted cooldown: e7e5 22 frames after e2e4.
+    clip = (frames[:FOOTAGE_START + COOLDOWN_E2E4_FRAMES]
+            + frames[FOOTAGE_START + FOOTAGE_RUN:])
+    for seconds, want_moves in ((2.0, ["e2e4"]), (0.5, ["e2e4", "e7e5"])):
+        with tempfile.TemporaryDirectory() as tmp, counted(launches):
+            path = os.path.join(tmp, "timeline.jsonl")
+            moves, fen, n = process_video.run_capture(
+                process_video.FrameReader(clip, FOOTAGE_FPS), config, skip_frames=1,
+                out_path=path, cooldown_seconds=seconds, device=DEVICE)
+            with open(path) as fh:
+                lines = fh.read().splitlines()
+        boards = [start, after1, after2][: len(want_moves) + 1]
+        want_lines, commits = expected_timeline(lines, boards, COOLDOWN_SHOWS, want_moves)
+        check(moves == want_moves and lines[:-1] == want_lines and fen == boards[-1].fen(),
+              f"footage cooldown {seconds} s: committed {moves}, timeline {lines}")
+        phase("footage", f"cooldown_seconds={seconds} ({int(seconds * FOOTAGE_FPS)} frames at "
+              f"{FOOTAGE_FPS} fps), e7e5 shown 20 frames after e2e4: committed {moves} on "
+              f"frames {commits}")
+
+    # The enhanced path through the same entry point.
+    clahe, calls = tenh.clahe, [0]
+
+    def counted_clahe(*args, **kwargs):
+        calls[0] += 1
+        return clahe(*args, **kwargs)
+
+    tenh.clahe = counted_clahe
+    session, timer = timed_session()
+    try:
+        with counted(launches) as got:
+            t0 = time.perf_counter()
+            moves, fen, n = process_video.run_capture(
+                process_video.FrameReader(frames, FOOTAGE_FPS), {**config, "use_enhancer": True},
+                skip_frames=1, session=session)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        tenh.clahe = clahe
+    check(moves == ["e2e4", "e7e5"] and fen == after2.fen(),
+          f"footage enhanced: committed {moves}, FEN {fen}")
+    k = calls[0]
+    want = {"score_matmul": n, "bilateral": k, "clahe_hist": 0, "clahe_hist_luts": k,
+            "clahe_apply": k}
+    check(k == n + 1 and got == want,
+          f"footage enhanced: {k} CLAHE calls for {n} frames and the reference, launches {got}, "
+          f"want {want}")
+    phase("footage", f"enhanced run_capture: committed {moves}; {k} CLAHE calls, each one B3 "
+          f"and one B4 launch; launches {got}; {timing(session, timer, wall_ms)}; on {smi}")
+
+    api_phase(corners, camera, frames, launches, smi)
+    enhance_frame_phase(frames[0], launches, smi)
+    counts = {name: launches[name] for name in COUNTERS}
+    phase("footage", f"kernel launches on this path: {counts}")
+    return counts
+
+
+def call_ms(fn, reps=5):
+    """Host-clock ms of one call of fn(), the card synchronized after each:
+    the median of reps calls after one untimed call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+# The api's capture: its geometry assumes 1280x720 frames, as the JAX api's.
+API_HEIGHT, API_WIDTH = 720, 1280
+
+
+def api_phase(corners, camera, frames, launches, smi):
+    """The api's entry points on the card, on 1280x720 frames (the capture
+    the api's geometry assumes) of the benchmark's board layout: occupancy,
+    FEN, changes and grid on a frame pair (start, then e2e4) with the
+    default disc size, as tests/test_api.py's pair (a pawn-sized disc on a
+    square of its own shade changes under 5% of the square, below the
+    change model's significance: reference behaviour, ROADMAP Queue C 5);
+    the full FEN on frames with piece types; ms a call of each. Then a
+    GameSession's piece types and verify_position on the 1080p footage
+    frames (``corners``, ``camera``)."""
+    start, after1 = _boards("e2e4")
+    api_corners = bench_corners(API_HEIGHT, API_WIDTH)
+    api_camera = SynthCamera(api_corners, frame_size=(API_HEIGHT, API_WIDTH),
+                             board_px=min(API_HEIGHT, API_WIDTH) - 100)
+    rng = np.random.default_rng(33)
+    f0 = api_camera.render(occupancy_of(start), rng)
+    f1 = api_camera.render(occupancy_of(after1), rng)
+    truth = _occ_set(occupancy_of(after1))
+    with counted(launches):
+        occ = api.detect_pieces(f1, api_corners, reference_frame=f0, device=DEVICE)
+        fen = api.frame_to_fen(f1, api_corners, reference_frame=f0, device=DEVICE)
+        changed = api.detect_changes(f1, api_corners, reference_frame=f0, device=DEVICE)
+        grid = api.extract_grid(f0, api_corners, device=DEVICE)
+    check(occ == truth, f"api.detect_pieces: {sorted(occ ^ truth)} differ from the truth")
+    want_fen = occupancy_to_fen(occupancy_of(after1))
+    check(fen == want_fen, f"api.frame_to_fen: {fen} != {want_fen}")
+    check({(4, 1), (4, 3)} <= changed and len(changed) <= 8,
+          f"api.detect_changes: {sorted(changed)}")
+    cpu_grid = api.extract_grid(f0, api_corners, device="cpu")
+    check(set(grid) == set(cpu_grid) and len(grid) == 64
+          and all(grid[k].shape == cpu_grid[k].shape for k in grid),
+          "api.extract_grid: crops or shapes differ from the CPU's")
+    grid_diff = max(int(np.abs(grid[k].astype(int) - cpu_grid[k].astype(int)).max()) for k in grid)
+
+    midgame = rules_chess.Board(MIDGAME_FEN)
+    cal = typed_frames(api_camera, [start] * 2, 30)
+    target = typed_frames(api_camera, [midgame] * 2, 31)
+    with counted(launches):
+        full = api.frame_to_full_fen(target[0], api_corners, cal, frames=target[1:],
+                                     device=DEVICE)
+    check(full.split()[0] == MIDGAME_FEN.split()[0],
+          f"api.frame_to_full_fen: {full.split()[0]} != {MIDGAME_FEN.split()[0]}")
+    calls = {
+        "detect_pieces": lambda: api.detect_pieces(f1, api_corners, reference_frame=f0,
+                                                   device=DEVICE),
+        "frame_to_fen": lambda: api.frame_to_fen(f1, api_corners, reference_frame=f0,
+                                                 device=DEVICE),
+        "detect_changes": lambda: api.detect_changes(f1, api_corners, reference_frame=f0,
+                                                     device=DEVICE),
+        "extract_grid": lambda: api.extract_grid(f0, api_corners, device=DEVICE),
+        "frame_to_full_fen (2 + 2 frames)": lambda: api.frame_to_full_fen(
+            target[0], api_corners, cal, frames=target[1:], device=DEVICE),
+    }
+    ms = {name: call_ms(fn) for name, fn in calls.items()}
+
+    more = typed_frames(camera, [start] * 3 + [after1] * 8, 32)
+    session = calibrated_session(corners, (WIDTH, HEIGHT), DEVICE)
+    with counted(launches):
+        session.capture_reference_frame(frames[0])
+        for fr in frames[1:FOOTAGE_START] + more[:3]:
+            session.on_frame(fr)
+        cents = session.calibrate_piece_types()
+        moved = frames[FOOTAGE_START:FOOTAGE_START + FOOTAGE_RUN] + more[3:]
+        commit = next((i for i, fr in enumerate(moved) if session.on_frame(fr)), None)
+        check(commit is not None, "api session: e2e4 was not committed")
+        for fr in moved[commit + 1: commit + 1 + session._radius_window.maxlen + 2]:
+            session.on_frame(fr)
+        match, got, want = session.verify_position()
+    check(cents is not None and len(cents) == 12, f"api session: {cents} type centroids")
+    check(match is True and want == after1.fen().split()[0],
+          f"api session: verify_position {match}: {got} vs {want}")
+    phase("footage", f"api on {API_WIDTH}x{API_HEIGHT}: detect_pieces and frame_to_fen equal "
+          f"the truth ({fen.split()[0]}), detect_changes {sorted(changed)}, extract_grid 64 "
+          f"crops of the CPU's shapes (max diff {grid_diff}), frame_to_full_fen reads "
+          f"{full.split()[0]}; ms a call (median of 5, host clock, synchronized): "
+          + ", ".join(f"{name} {t:.3f}" for name, t in ms.items()) + f"; on {smi}")
+    phase("footage", f"a GameSession on the {WIDTH}x{HEIGHT} footage typed 12 classes, "
+          f"committed e2e4 on frame {commit + 1} and verify_position matched ({got})")
+
+
+def enhance_frame_phase(frame, launches, smi):
+    """api.enhance_frame on the card at three shapes: B2-B4 bit-equal to
+    their plain versions on the card at each, the output within Queue C 7
+    of the same call on the CPU, and ms a call (the kernels' device time at
+    1080x1920: whole_frame_phase)."""
+    tiles = 8
+    for top, left, h, w in ENHANCE_CROPS:
+        crop = np.ascontiguousarray(frame[top:top + h, left:left + w])
+        h, w = crop.shape[:2]
+        with counted(launches) as got:
+            out = api.enhance_frame(crop, device=DEVICE)
+        one = dict.fromkeys(COUNTERS, 1) | {"score_matmul": 0, "clahe_hist": 0}
+        check(got == one, f"enhance_frame {h}x{w}: launches {got}, want {one}")
+        planar = torch.as_tensor(to_planar(crop), device=DEVICE)
+        lab_l = planar_bgr2lab(planar)[0]
+        th, tw = -(-h // tiles), -(-w // tiles)
+        clip = max(int(3.0 * th * tw / 256), 1)
+        hist, lut = kc.clahe_hist_luts(lab_l, th, tw, tiles, clip)
+        want_hist, want_lut = kc.clahe_hist_luts_reference(lab_l, th, tw, tiles, clip)
+        applied = kc.clahe_apply(lab_l, lut, th, tw, tiles)
+        lit = correct_lighting(planar)
+        smooth = kb.bilateral_planar(lit)
+        check(torch.equal(hist, want_hist) and torch.equal(lut, want_lut),
+              f"clahe_hist_luts {h}x{w}: differs from plain")
+        check(torch.equal(applied, kc.clahe_apply_reference(lab_l, want_lut, th, tw, tiles)),
+              f"clahe_apply {h}x{w}: differs from plain")
+        check(torch.equal(smooth, kb.bilateral_reference(lit)),
+              f"bilateral {h}x{w}: differs from plain")
+        cpu = api.enhance_frame(crop, device="cpu")
+        d = np.abs(out.astype(int) - cpu.astype(int))
+        check(out.shape == crop.shape and d.max() <= ENHANCE_MAX_DIFF
+              and (d > 0).mean() <= ENHANCE_FRACTION,
+              f"enhance_frame {h}x{w}: card vs CPU max diff {d.max()}, {int((d > 0).sum())} "
+              "pixels differ")
+        call = call_ms(lambda: api.enhance_frame(crop, device=DEVICE))
+        phase("footage", f"enhance_frame {h}x{w} (tiles {th}x{tw}, apply "
+              f"{'word' if w % 4 == 0 else 'byte'} path): B2, B3, B4 bit-equal to their plain "
+              f"versions on the card; card vs CPU: {int((d > 0).sum())} of {d.size} values "
+              f"differ, max {int(d.max())} (limits {ENHANCE_MAX_DIFF}, {ENHANCE_FRACTION:g}); "
+              f"{call:.3f} ms a call (median of 5, host clock, synchronized) on {smi}")
+
+
+def whole_frame_phase(frame, smi):
+    """B2-B4 at api.enhance_frame's 1080x1920 shape. B2 on the rendered frame
+    and on random u8 (the frame's flat background is a best case for its
+    color-weight lookups), B3 and B4 on the frame's Lab-L; each line gives
+    the profiler's records a call seen (launch_ms) and the median time of a
+    call between CUDA events with the stream held (held_ms), which needs no
+    profiler."""
+    tiles = 8
+    lit = correct_lighting(on_card(to_planar(frame)))
+    C, h, w = lit.shape
+    g = torch.Generator(device=DEVICE).manual_seed(2)
+    rand = correct_lighting(torch.randint(0, 256, lit.shape, device=DEVICE, generator=g,
+                                          dtype=torch.uint8))
+    check(torch.equal(kb.bilateral_planar(rand), kb.bilateral_reference(rand)),
+          f"bilateral random {h}x{w}: differs from plain")
+    lab_l = planar_bgr2lab(lit)[0]
+    th, tw = -(-h // tiles), -(-w // tiles)
+    clip = max(int(3.0 * th * tw / 256), 1)
+    lut = kc.clahe_hist_luts(lab_l, th, tw, tiles, clip)[1]
+    bil_bound = bound(2 * C * h * w, BILATERAL_TAPS * BILATERAL_FLOPS_PER_TAP * h * w, F32_FLOPS)
+    n_lut = tiles * tiles * 256
+    rows = (
+        ("bilateral", lambda: kb.bilateral_planar(lit), lambda: kb.bilateral_reference(lit),
+         10, bil_bound),
+        ("bilateral on random u8", lambda: kb.bilateral_planar(rand),
+         lambda: kb.bilateral_reference(rand), 10, bil_bound),
+        ("clahe_hist_luts", lambda: kc.clahe_hist_luts(lab_l, th, tw, tiles, clip),
+         lambda: kc.clahe_hist_luts_reference(lab_l, th, tw, tiles, clip), 100,
+         bound(h * w + 8 * n_lut, th * tiles * tw * tiles, F32_FLOPS)),
+        ("clahe_apply", lambda: kc.clahe_apply(lab_l, lut, th, tw, tiles),
+         lambda: kc.clahe_apply_reference(lab_l, lut, th, tw, tiles), 100,
+         bound(2 * h * w + 4 * n_lut, 10 * h * w, F32_FLOPS)),
+    )
+    parts = []
+    for name, kernel, plain, iters, b in rows:
+        ms, plain_ms, _ = kernel_vs_plain_ms(kernel, plain, iters)
+        seen = launch_ms(kernel, iters)[1]
+        parts.append(f"{name} {ms * 1e3:.1f} ({seen:.2f} records a call seen; held-stream "
+                     f"CUDA events {held_ms(kernel, iters) * 1e3:.1f}; plain "
+                     f"{plain_ms * 1e3:.1f}, bound "
+                     f"{b[0] * 1e3:.2f} {b[1]}, {b[0] / ms:.0%} of it)")
+    phase("kernel", f"whole {h}x{w} frame (api.enhance_frame's shape; tiles {th}x{tw}), device "
+          "us/call vs plain and bound: " + "; ".join(parts) + f"; on {smi}")
+
+
 def main():
     t_start = time.perf_counter()
 
@@ -1111,6 +1607,7 @@ def main():
     frame = camera.render(initial_occupancy(), rng)
     records = [score_matmul_phase(pipe, frame, smi)]
     records += enhancement_kernels_phase(pipe, frame, smi)
+    whole_frame_phase(frame, smi)
     elapsed("kernels")
 
     plain = run_path("plain", False, corners, camera, rng, CHUNK, smi)
@@ -1140,9 +1637,15 @@ def main():
     records[0]["max_abs_err"] = max(records[0]["max_abs_err"], b1_wide_err)
     elapsed("streams path")
 
+    footage = footage_phase(corners, camera, smi)
+    missing = [k for k in COUNTERS if k != "clahe_hist" and footage[k] == 0]
+    check(not missing, f"the footage path never launched {missing}")
+    check(footage["clahe_hist"] == 0, "the footage path launched the histogram-only B3")
+    elapsed("footage path")
+
     for rec in records:
         w = PATH_WRAPPER.get(rec["name"], rec["name"])
-        rec["launches"] = plain[w] + enhanced[w] + streams[w]
+        rec["launches"] = plain[w] + enhanced[w] + streams[w] + footage[w]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: rec[k] for k in keys} for rec in records]}), flush=True)

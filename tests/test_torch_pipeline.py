@@ -191,6 +191,50 @@ def test_step_many_equals_sequential_steps(clip, pipes, layout):
             np.testing.assert_array_equal(x, y)
 
 
+@pytest.mark.parametrize("use_smoothing,use_delta", [(False, False), (False, True), (True, False)],
+                         ids=["stateless", "no_smoothing", "no_delta"])
+def test_step_options_match_jax(clip, pipes, use_smoothing, use_delta):
+    """step(use_smoothing, use_delta) as the JAX step takes them (api.py's
+    stateless calls): every frame's outputs and the states agree, with and
+    without a smart-scan subset; step_many with the same options equals the
+    sequential steps."""
+    frame0, frames = clip
+    jp, tpipe = pipes
+    kw = dict(use_smoothing=use_smoothing, use_delta=use_delta)
+    js = jp.capture_reference(jp.init_state(), frame0)
+    ts = start = tpipe.capture_reference(tpipe.init_state(), frame0)
+    outs = []
+    for i, fr in enumerate(frames[2:10]):
+        s2c = {(4, 1), (4, 3), (0, 0)} if i % 2 else None
+        js, jo = jp.step(js, fr, squares_to_check=s2c, **kw)
+        ts, to = tpipe.step(ts, fr, squares_to_check=s2c, **kw)
+        assert_outputs_match(to, jo, where=f"frame {i}")
+        outs.append(tp.outputs_to_numpy(to))
+    assert_states_match(ts, js)
+    if use_smoothing:
+        return
+    s2c = {(4, 1), (4, 3)}
+    seq, many = start, start
+    seq_outs = []
+    for fr in frames[2:6]:
+        seq, o = tpipe.step(seq, fr, squares_to_check=s2c, **kw)
+        seq_outs.append(tp.outputs_to_numpy(o))
+    many, mo = tpipe.step_many(many, np.stack(frames[2:6]), squares_to_check=s2c, **kw)
+    mo = tp.outputs_to_numpy(mo)
+    for f in tp.StepOutputs._fields:
+        np.testing.assert_array_equal(
+            getattr(mo, f), np.stack([getattr(o, f) for o in seq_outs]), err_msg=f)
+
+
+def test_warp_board_equals_jax(clip, pipes):
+    """warp_board (the gather warp of an HWC frame) is bit-equal to the JAX
+    pipeline's."""
+    jp, tpipe = pipes
+    got = tpipe.warp_board(clip[0])
+    np.testing.assert_array_equal(got, jp.warp_board(clip[0]))
+    assert got.shape == (tpipe.geometry.board_size,) * 2 + (3,) and got.dtype == np.uint8
+
+
 def test_outputs_to_numpy_dtypes_and_unsupported_options(pipes):
     _, tpipe = pipes
     out = tp.StepOutputs(*(

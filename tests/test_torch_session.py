@@ -105,6 +105,15 @@ def test_session_needs_the_card_unless_asked_for_the_cpu():
         TorchSession()
 
 
+def test_headless_false_and_auto_recalibrate_are_not_ported():
+    """The renderer and drift re-calibration wait for ROADMAP A17: asking
+    for them raises, naming the item."""
+    with pytest.raises(NotImplementedError, match="ROADMAP A17"):
+        TorchSession(device="cpu", headless=False)
+    with pytest.raises(NotImplementedError, match="ROADMAP A17"):
+        TorchSession(device="cpu").configure({**CONFIG, "auto_recalibrate": True})
+
+
 def test_demo_pipeline_plays_a_scripted_move(capsys):
     """The port's headless demo (numpy-rendered frames, CPU device)
     commits the scripted move and ends with the script's FEN."""
@@ -113,3 +122,37 @@ def test_demo_pipeline_plays_a_scripted_move(capsys):
     assert demo_pipeline.main(["--moves", "d2d4", "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert "detected + committed: d2d4" in out and out.rstrip().endswith("OK")
+
+
+def test_frame_counted_cooldown_commits_on_the_same_frames_as_jax(monkeypatch):
+    """cooldown_frames (the recorded-footage cooldown, in processed frames)
+    on both sessions: e2e4, then e7e5 inside the cooldown. Both sessions
+    hold e7e5 back until the cooldown has passed and commit each move on
+    the same frame."""
+    monkeypatch.setattr(jax_session_mod, "VisionPipeline",
+                        functools.partial(JaxPipeline, hough_backend="conv"))
+    rng = np.random.default_rng(12)
+    script = chess.Board()
+    frame0 = make_board_frame(occupancy_of(script), rng)
+    frames = []
+    for uci, n in (("e2e4", 22), ("e7e5", 30)):
+        script.push_uci(uci)
+        frames += [make_board_frame(occupancy_of(script), rng) for _ in range(n)]
+    cooldown = 28
+    jsess = jax_session_mod.GameSession(headless=True)
+    tsess = TorchSession(device="cpu", hough_backend="conv")
+    assert jsess.on_calibration_requested(None, config=dict(CONFIG))
+    assert tsess.on_calibration_requested(config=dict(CONFIG))
+    commits = []
+    for s in (jsess, tsess):
+        s.cooldown_frames = cooldown
+        s.capture_reference_frame(frame0)
+        commits.append([(m.uci(), s.frame_count) for m in map(s.on_frame, frames) if m])
+    assert commits[1] == commits[0]
+    (m1, f1), (m2, f2) = commits[1]
+    assert (m1, m2) == ("e2e4", "e7e5")
+    # e7e5 is stable 20 frames after it shows (frame 23): inside the
+    # cooldown, so it commits on the first frame past it.
+    assert f2 == f1 + cooldown + 1 and f2 > 23 + 20
+    assert tsess.last_move_frame == jsess.last_move_frame == f2
+    assert tsess.game.get_fen() == jsess.game.get_fen() == script.fen()
