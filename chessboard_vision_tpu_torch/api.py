@@ -215,8 +215,8 @@ def digitize_video(
     Wraps tools/process_video.run and rules.pgn.game_to_pgn. Pass either
     the 4 calibration ``corners`` (TL, TR, BL, BR) or a full calibration
     ``config`` dict. Returns {"moves": [uci...], "fen": str, "pgn": str,
-    "frames": int}. ``auto_recalibrate`` (drift) is not ported yet: the
-    session raises (ROADMAP A17)."""
+    "frames": int}. ``auto_recalibrate`` turns on the session's drift
+    re-calibration (session/drift.py)."""
     from chessboard_vision_tpu_torch.rules.pgn import game_to_pgn
     from chessboard_vision_tpu_torch.tools.process_video import run
 

@@ -17,9 +17,11 @@ Coordinate conventions (identical to the reference):
 - device tensors order squares by chess index sq = rank*8 + file (a1=0).
 
 The PyTorch port's own copy of chessboard_vision_tpu/geometry.py, equal to
-it function for function, without its two OpenCV calibration helpers
-(``refine_grid``, ``find_chessboard_corners``): the port imports no cv2,
-and no port module calls them.
+it function for function. Its two calibration helpers use no OpenCV:
+``refine_grid`` and ``find_chessboard_corners`` run their image stages
+(gray, Gaussian blur, exact Canny, dilation) as torch ops on ``device``,
+each bit-equal to the cv2 call it replaces, and the corner detector's
+contour stages in numpy on the host (contours.py).
 """
 
 from __future__ import annotations
@@ -28,6 +30,19 @@ from dataclasses import dataclass, field
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
+import torch.nn.functional as F
+
+from chessboard_vision_tpu_torch.contours import (
+    approx_poly_dp,
+    arc_length,
+    contour_area,
+    find_external_contours,
+)
+from chessboard_vision_tpu_torch.device import resolve_device
+from chessboard_vision_tpu_torch.ops.canny import canny
+from chessboard_vision_tpu_torch.ops.color import bgr2gray
+from chessboard_vision_tpu_torch.ops.filters import gaussian_blur
 
 
 # ---------------------------------------------------------------------------
@@ -143,6 +158,71 @@ def refine_grid_lines(edges_row_proj: np.ndarray, length: int, count: int = 7) -
         lines.append(lo + int(np.argmax(window)) if len(window) else center)
     lines.append(length)
     return lines
+
+
+def _gray_on(img_bgr: np.ndarray, device) -> torch.Tensor:
+    """An (H, W, 3) BGR u8 host image's gray plane on ``device``
+    (cv2.cvtColor(img, COLOR_BGR2GRAY))."""
+    return bgr2gray(torch.as_tensor(np.ascontiguousarray(img_bgr)).to(device))
+
+
+def refine_grid(img_warped_bgr: np.ndarray, device="cuda") -> Tuple[List[int], List[int]]:
+    """Smart-grid refinement (reference grid_extractor.py:66-121): the
+    projections of the warped board's Canny(50, 150) edges, each searched
+    for the 7 inner grid lines. Returns (x lines, y lines)."""
+    gray = _gray_on(img_warped_bgr, resolve_device(device, "refine_grid"))
+    h, w = gray.shape
+    edges = canny(gray, 50, 150, max_iters=h * w)
+    row_proj = edges.sum(dim=1).cpu().numpy()
+    col_proj = edges.sum(dim=0).cpu().numpy()
+    return refine_grid_lines(col_proj, w), refine_grid_lines(row_proj, h)
+
+
+BOARD_MIN_AREA = 100000  # px^2: a contour must enclose more to be a board
+
+
+def board_edge_mask(img_bgr: np.ndarray, device="cuda") -> torch.Tensor:
+    """The corner detector's image stages on ``device``: (H, W) bool, the
+    cv2 mask ``dilate(Canny(GaussianBlur(gray, (7, 7), 1), 30, 100),
+    ones((5, 5)), iterations=3)`` of an (H, W, 3) BGR u8 host image. The
+    Canny's hysteresis may take H * W dilations (cv2 has no cap); the three
+    5x5 dilations are one 13x13 max-pool, a row pass and a column pass."""
+    gray = _gray_on(img_bgr, resolve_device(device, "board_edge_mask"))
+    h, w = gray.shape
+    edges = canny(gaussian_blur(gray, 7, 1.0), 30, 100, max_iters=h * w)
+    dilated = edges[None].to(torch.float32)
+    for kernel, pad in (((1, 13), (0, 6)), ((13, 1), (6, 0))):
+        dilated = F.max_pool2d(dilated, kernel, stride=1, padding=pad)
+    return dilated[0] > 0
+
+
+def corners_from_mask(mask: np.ndarray) -> np.ndarray:
+    """The corner detector's contour stages on the host: the largest
+    4-vertex external contour of ``mask`` enclosing more than
+    BOARD_MIN_AREA, through ``reorder`` ((4, 1, 2) int32), or an empty
+    array."""
+    rects = []  # (area, 4-vertex approximation), in cv2's contour order
+    for c in find_external_contours(mask, min_box_area=BOARD_MIN_AREA):
+        area = contour_area(c)
+        if area > BOARD_MIN_AREA:
+            approx = approx_poly_dp(c, 0.02 * arc_length(c))
+            if len(approx) == 4:
+                rects.append((area, approx))
+    if not rects:
+        return np.array([])
+    return reorder(max(rects, key=lambda r: r[0])[1])  # the first of the largest
+
+
+def find_chessboard_corners(img_bgr: np.ndarray, debug: bool = False,
+                            device="cuda") -> np.ndarray:
+    """Automatic corner detection (reference board_detection.py:4-27):
+    Canny, dilate, then the largest 4-point contour with area > 100000.
+    Returns (4, 1, 2) int32 corners TL, TR, BL, BR, or an empty array. The
+    image stages run on ``device`` (board_edge_mask), one copy brings the
+    mask to the host for the contour stages (corners_from_mask). ``debug``
+    is accepted for the reference's signature and unused, as in the JAX
+    package."""
+    return corners_from_mask(board_edge_mask(img_bgr, device).cpu().numpy())
 
 
 def split_board_dict(img_warped: np.ndarray, grid_x=None, grid_y=None) -> dict:

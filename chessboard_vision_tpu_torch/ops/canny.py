@@ -6,9 +6,9 @@ then 8-connected hysteresis. A hysteresis step is the JAX package's
 ``edges | (dilate3(edges) & weak)``; since the edges start as the strong
 pixels and stay within cand = strong | weak, that is
 ``dilate3(edges) & cand``. As in the JAX package, the steps run on
-bitplanes: the N images' bool maps are packed 32 to an integer word, so a
-step is a few shifted ORs over (ceil(N/32), H, W) words, bit-identical to
-the per-image maps.
+bitplanes: the N images' bool maps are packed b = min(N, 32) to an
+integer word, so a step is a few shifted ORs over (ceil(N/b), H, W) words,
+bit-identical to the per-image maps.
 """
 
 from __future__ import annotations
@@ -19,10 +19,10 @@ import torch.nn.functional as F
 from chessboard_vision_tpu_torch.ops.filters import sobel3
 
 _TG22 = 13573  # tan(22.5 deg) * 2^15, OpenCV's fixed-point constant
-_MAX_ITERS = 256  # dilation cap of the exact fixpoint, as in the JAX package
+_MAX_ITERS = 256  # default dilation cap of the exact fixpoint, as in the JAX package
 # The exact fixpoint runs its dilations in blocks and reads one "changed"
 # flag back to the host after each block: _FIRST_BLOCK dilations, then each
-# block _GROWTH times the last, the total capped at _MAX_ITERS. Dilations past
+# block _GROWTH times the last, the total capped at max_iters. Dilations past
 # the fixpoint change nothing, so every schedule that stops at the fixpoint
 # or at the cap gives the JAX package's edges (it checks every 4 dilations).
 _FIRST_BLOCK, _GROWTH = 8, 2
@@ -37,20 +37,23 @@ def _shift2(x: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
 
 
 def _pack_bits(x: torch.Tensor) -> torch.Tensor:
-    """(N, H, W) bool -> (ceil(N/32), H, W) int64 words, image s in bit
-    s % 32 of word s // 32 (padding images are 0, inert under dilation)."""
+    """(N, H, W) bool -> (ceil(N/b), H, W) int64 words of b = min(N, 32)
+    bits, image s in bit s % b of word s // b (padding images are 0, inert
+    under dilation; fewer than 32 images take no padding)."""
     n, h, w = x.shape
-    k = -(-n // 32)
-    xp = F.pad(x.to(torch.int64), (0, 0, 0, 0, 0, k * 32 - n)).reshape(k, 32, h, w)
-    sh = torch.arange(32, device=x.device, dtype=torch.int64).reshape(1, 32, 1, 1)
+    b = min(n, 32)
+    k = -(-n // b)
+    xp = F.pad(x.to(torch.int64), (0, 0, 0, 0, 0, k * b - n)).reshape(k, b, h, w)
+    sh = torch.arange(b, device=x.device, dtype=torch.int64).reshape(1, b, 1, 1)
     return (xp << sh).sum(dim=1)  # disjoint bits: the sum is an OR
 
 
 def _unpack_bits(p: torch.Tensor, n: int) -> torch.Tensor:
-    """(K, H, W) words -> (n, H, W) bool."""
+    """(K, H, W) words of _pack_bits -> (n, H, W) bool."""
     k, h, w = p.shape
-    sh = torch.arange(32, device=p.device, dtype=torch.int64).reshape(1, 32, 1, 1)
-    return ((p[:, None] >> sh) & 1).reshape(k * 32, h, w)[:n].bool()
+    b = min(n, 32)
+    sh = torch.arange(b, device=p.device, dtype=torch.int64).reshape(1, b, 1, 1)
+    return ((p[:, None] >> sh) & 1).reshape(k * b, h, w)[:n].bool()
 
 
 def _grow(edges: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:
@@ -62,12 +65,16 @@ def _grow(edges: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:
     return (v[..., 0:w] | v[..., 1 : w + 1] | v[..., 2 : w + 2]) & cand
 
 
-def canny(img: torch.Tensor, low: int, high: int, hysteresis_rounds: int = -1) -> torch.Tensor:
+def canny(img: torch.Tensor, low: int, high: int, max_iters: int = _MAX_ITERS,
+          hysteresis_rounds: int = -1) -> torch.Tensor:
     """cv2.Canny(img, low, high) for u8 (..., H, W) images -> bool edges.
 
-    hysteresis_rounds: -1 runs the exact fixpoint (bit-exact vs cv2; its
-    convergence test reads a flag back to the host once per block of
-    dilations, each read counted in ``canny.host_syncs``); k >= 0 runs
+    hysteresis_rounds: -1 runs the exact fixpoint, at most ``max_iters``
+    dilations (its convergence test reads a flag back to the host once per
+    block of dilations, each read counted in ``canny.host_syncs``). It is
+    bit-exact vs cv2, which has no cap, where no weak chain is longer than
+    the cap: the Hough path keeps the JAX package's 256 (ample inside a
+    square), the corner detector passes H * W for a whole frame. k >= 0 runs
     exactly k rounds of 4 dilations with no host sync (the pipeline's conv
     Hough path uses 2): weak pixels further than 4k steps from a strong
     pixel are dropped.
@@ -107,10 +114,10 @@ def canny(img: torch.Tensor, low: int, high: int, hysteresis_rounds: int = -1) -
     done, block = 0, _FIRST_BLOCK
     while True:
         new = edges
-        for _ in range(min(block, _MAX_ITERS - done)):
+        for _ in range(min(block, max_iters - done)):
             new = _grow(new, cand)
-        done += min(block, _MAX_ITERS - done)
-        if done == _MAX_ITERS:
+        done += min(block, max_iters - done)
+        if done == max_iters:
             break
         canny.host_syncs += 1
         if torch.equal(new, edges):  # a block changed nothing: the fixpoint

@@ -9,8 +9,11 @@ Per-stream semantics match GameSession (same stability constants and
 inference); the noise FSM runs on the device (ops/fsm.py).
 
 ``save_checkpoint``/``resume_checkpoint`` use the JAX package's format, so
-a checkpoint of either package resumes in the other. Drift
-re-calibration (``auto_recalibrate``) is not ported yet (ROADMAP A17).
+a checkpoint of either package resumes in the other.
+``auto_recalibrate=True`` gives every rig a DriftMonitor (session/drift.py)
+checked every ``drift_check_interval`` ticks; the rigs confirmed bumped in
+a tick get their shifted corners in ONE rebuild of the pipeline in
+per-stream-geometry mode, and only their device state is replaced.
 """
 
 from __future__ import annotations
@@ -25,8 +28,9 @@ from chessboard_vision_tpu_torch.models.pipeline import occupancy_to_set
 from chessboard_vision_tpu_torch.ops.layout import positions_to_mask
 from chessboard_vision_tpu_torch.parallel.multistream import MultiStreamPipeline
 from chessboard_vision_tpu_torch.rules import GameState, chess
+from chessboard_vision_tpu_torch.session.drift import DriftMonitor
 from chessboard_vision_tpu_torch.session.inference import infer_move_from_diff
-from chessboard_vision_tpu_torch.utils.checkpoint import load_tree, read_meta, save_tree
+from chessboard_vision_tpu_torch.utils.checkpoint import load_tree, read_meta, save_tree, tree_map
 from chessboard_vision_tpu_torch.utils.config import (
     PIECE_SETTINGS_FILE,
     SENSITIVITY_FILE,
@@ -55,20 +59,18 @@ class MultiStreamSession:
         n_streams: int,
         on_move_detected: Optional[Callable[[int, "chess.Move"], bool]] = None,
         auto_recalibrate: bool = False,
+        drift_check_interval: int = 300,
+        drift_threshold_px: float = 4.0,
+        drift_max_px: float = 80.0,
+        drift_confirm: int = 2,
         device="cuda",
         **pipeline_kw,
     ):
         """``geometry``: one BoardGeometry for all rigs or a list of N.
         ``pipeline_kw`` go to MultiStreamPipeline; the tuned settings files
         are read as GameSession.configure reads them, explicit keywords
-        win. ``auto_recalibrate=True`` raises: drift re-calibration is not
-        ported yet."""
-        if auto_recalibrate:
-            raise NotImplementedError(
-                "auto_recalibrate: drift re-calibration is not ported yet "
-                "(ROADMAP.md Queue A, A17: session/drift.py and the cv2 "
-                "calibration helpers)"
-            )
+        win. ``auto_recalibrate`` turns on the per-rig drift checks, with
+        the ``drift_*`` gates of session/drift.py."""
         self.n = n_streams
         if isinstance(geometry, (list, tuple)):
             self.geometries = list(geometry)
@@ -84,11 +86,61 @@ class MultiStreamSession:
         self.frame_count = 0
         self.on_move_detected = on_move_detected or (lambda i, m: True)
         self.log = get_logger("msession")
+        self.drift_check_interval = int(drift_check_interval)
+        self.drift: Optional[List[DriftMonitor]] = None
+        if auto_recalibrate:
+            self.drift = [
+                DriftMonitor(g.src_corners, threshold_px=drift_threshold_px, max_px=drift_max_px,
+                             confirm=drift_confirm, device=self.device)
+                for g in self.geometries
+            ]
 
     def capture_reference(self, frames):
         """Every stream's visual reference from frames (N, H, W, 3) HWC or
-        (N, 3, H, W) planar u8."""
+        (N, 3, H, W) planar u8; with drift checks on, each rig's frame
+        seeds its detector's baseline."""
         self.state = self.ms.capture_reference(self.state, frames)
+        if self.drift is not None:
+            for mon, frame in zip(self.drift, self._hwc_frames(frames)):
+                mon.check(frame)
+
+    @staticmethod
+    def _hwc_frames(frames) -> np.ndarray:
+        """(N, H, W, 3) host frames for the corner detector, from the HWC
+        or the planar (N, 3, H, W) layout."""
+        arr = np.asarray(frames)
+        if arr.ndim == 4 and arr.shape[1] == 3 and arr.shape[-1] != 3:
+            arr = np.moveaxis(arr, 1, -1)
+        return arr
+
+    def _check_drift(self, frames):
+        """One drift check a rig; the rigs confirmed bumped get their new
+        corners in ONE rebuild (a shared mount shifts them all at once) in
+        per-stream-geometry mode. Only those rigs' device state is replaced
+        (their frame passed the drift gates); the others keep theirs, since
+        re-capturing them from unvetted frames could bake a hand or a move
+        in progress into their background model."""
+        hwc = self._hwc_frames(frames)
+        confirmed = []
+        for i, mon in enumerate(self.drift):
+            new_corners = mon.check(hwc[i])
+            if new_corners is not None:
+                confirmed.append(i)
+                # np.rint: reorder() truncates float input
+                self.geometries[i] = self.geometries[i].with_corners(np.rint(new_corners))
+        if not confirmed:
+            return
+        self.log.warning("streams %s auto-recalibrating to shifted corners", confirmed)
+        self.ms = MultiStreamPipeline(self.geometries, n_streams=self.n, **self._pipeline_kw)
+        fresh = self.ms.capture_reference(self.ms.init_state(), frames)
+        idx = torch.as_tensor(confirmed, device=self.device)
+        self.state = tree_map(lambda old, new: old.index_copy(0, idx, new[idx]),
+                              self.state, fresh)
+        for i in confirmed:
+            st = self.streams[i]
+            st.stable_count = 0
+            st.stable_occupancy = None
+            st.refresh_next = False
 
     def _smart_scan_mask(self, st: _StreamState) -> np.ndarray:
         squares = set(st.game.get_board_occupancy())
@@ -107,6 +159,9 @@ class MultiStreamSession:
         refresh = np.array([st.refresh_next for st in self.streams])
         for st in self.streams:
             st.refresh_next = False
+
+        if self.drift is not None and self.frame_count % self.drift_check_interval == 0:
+            self._check_drift(frames)
 
         self.state, out = self.ms.step(self.state, frames, s2c_masks=s2c, refresh=refresh)
         host = torch.cat([out.step.occupancy, out.noise.blocked[:, None]], dim=1).cpu().numpy()
@@ -221,6 +276,12 @@ class MultiStreamSession:
             for i in changed:
                 self.geometries[i] = self.geometries[i].with_corners(np.rint(saved[i]))
             self.ms = MultiStreamPipeline(self.geometries, n_streams=self.n, **self._pipeline_kw)
+        if self.drift is not None:  # monitors at the restored corners, baselines unset
+            self.drift = [
+                DriftMonitor(g.src_corners, threshold_px=mon.threshold_px, max_px=mon.max_px,
+                             confirm=mon.confirm, device=self.device)
+                for g, mon in zip(self.geometries, self.drift)
+            ]
         self.state = state
         self.frame_count = meta["frame_count"]
         for st, m in zip(self.streams, meta["streams"]):

@@ -21,12 +21,17 @@ with the rules board; ``calibrate_piece_types`` fits the type model on the
 current (known) position, ``full_fen`` reads the placement off the board
 and ``verify_position`` holds it against the rules board.
 
+Drift re-calibration (``"auto_recalibrate": true``, session/drift.py):
+every ``drift_check_interval`` frames the automatic corner detector runs on
+the frame (its image stages on the session's device); a confirmed camera
+bump rebuilds the geometry and the pipeline around the shifted corners and
+re-captures the references, the game kept (``_recalibrate``).
+
 ``headless`` defaults to True here, where the JAX package's GameSession
 defaults to False: the port has no renderer yet, and ``headless=False``
-raises (ROADMAP A17).
-
-Not ported yet (ROADMAP.md Queue A): drift re-calibration, the renderer/UI
-overlay and the reference's visual-rank scan quirk (A17).
+raises (ROADMAP A15), as does ``on_calibration_requested`` with a camera
+and no saved calibration, which opens the interactive calibration tool in
+the JAX package. The reference's visual-rank scan quirk is not carried.
 """
 
 from __future__ import annotations
@@ -63,6 +68,7 @@ from chessboard_vision_tpu_torch.models.pipeline import (
     occupancy_to_set,
     outputs_to_numpy,
 )
+from chessboard_vision_tpu_torch.session.drift import DriftMonitor
 from chessboard_vision_tpu_torch.session.inference import infer_move_from_diff
 from chessboard_vision_tpu_torch.session.noise import NoiseHandler, NoiseState
 
@@ -79,17 +85,23 @@ class GameSession:
         if not headless:
             raise NotImplementedError(
                 "GameSession(headless=False): the renderer/UI overlay is not ported yet "
-                "(ROADMAP A17)")
+                "(ROADMAP A15)")
         self.device = resolve_device(device, "GameSession")
         self.hough_backend = hough_backend
         self.board_lock = threading.RLock()
 
         self.config: Optional[dict] = None
+        # Keys merged over any calibration config at configure() time: the
+        # CLI drivers' hook for flags like --auto-recalibrate.
+        self.default_config_overrides: dict = {}
         self.pipeline: Optional[VisionPipeline] = None
         self.pipe_state = None
         self.game: Optional[GameState] = None
         self.noise: Optional[NoiseHandler] = None
         self.player_color = None
+        self.orientation_flipped = False
+        self.drift: Optional[DriftMonitor] = None
+        self.drift_check_interval = 300
 
         self.fps = FpsCounter()
         self.frame_count = 0
@@ -116,29 +128,41 @@ class GameSession:
 
     # -- calibration -----------------------------------------------------
 
-    def on_calibration_requested(self, config: Optional[dict] = None) -> bool:
-        """Calibrate from a config dict, else from a saved calibration.json.
-        (The camera-driven calibration tool is not ported yet: ROADMAP A15.)"""
+    def on_calibration_requested(self, cap=None, config: Optional[dict] = None) -> bool:
+        """Calibrate from a config dict, else from a saved calibration.json,
+        then capture the reference from ``cap`` (any reader with ``read()``)
+        when one is given. With a camera and no saved calibration the JAX
+        package opens the interactive calibration tool, which is not ported
+        yet: that raises (ROADMAP A15)."""
         if config is None:
             config = load_json_config(CALIBRATION_FILE)
+        if config is None and cap is not None:
+            raise NotImplementedError(
+                "GameSession.on_calibration_requested: the interactive calibration tool "
+                "(tools/calibration_module.py) is not ported yet (ROADMAP A15); pass a "
+                "config or save calibration.json")
         if config is None:
             return False
         self.configure(config)
+        if cap is not None:
+            self.capture_reference(cap)
         return True
 
     def configure(self, config: dict):
-        """Build the pipeline and control-plane components from calibration.
+        """Build the pipeline and control-plane components from calibration,
+        with ``default_config_overrides`` merged over it.
         ``"use_enhancer": true`` puts the 5-stage enhancement ahead of
         detection in the same step, with the color profile of
         ``config["enhancer_profile"]`` or, failing that, color_profile.json.
-        ``"auto_recalibrate": true`` (drift re-calibration) is not ported
-        yet and raises."""
-        if config.get("auto_recalibrate", False):
-            raise NotImplementedError(
-                "GameSession: \"auto_recalibrate\" (drift re-calibration) is not ported yet "
-                "(ROADMAP A17, drift)")
+        ``"auto_recalibrate": true`` runs the drift check every
+        ``"drift_check_interval"`` frames (default 300) with the gates
+        ``"drift_threshold_px"``, ``"drift_max_px"`` and
+        ``"drift_confirm_checks"`` (session/drift.py)."""
+        if self.default_config_overrides:
+            config = {**config, **self.default_config_overrides}
         self.config = config
         self.player_color = config.get("player_color")
+        self.orientation_flipped = config.get("orientation_flipped", False)
         geometry = geo.BoardGeometry.from_config(config)
         use_enhancer = bool(config.get("use_enhancer", False))
         enhancer_profile = None
@@ -146,8 +170,7 @@ class GameSession:
             enhancer_profile = config.get("enhancer_profile")
             if enhancer_profile is None:
                 enhancer_profile = load_json_config(COLOR_PROFILE_FILE)
-        self.pipeline = VisionPipeline(
-            geometry,
+        self._pipeline_kwargs = dict(
             piece_settings=load_json_config(PIECE_SETTINGS_FILE),
             change_settings=load_json_config(SENSITIVITY_FILE),
             with_enhancer=use_enhancer,
@@ -155,13 +178,37 @@ class GameSession:
             hough_backend=self.hough_backend,
             device=self.device,
         )
+        self.pipeline = VisionPipeline(geometry, **self._pipeline_kwargs)
         self.pipe_state = self.pipeline.init_state()
         self.game = GameState()
         self.noise = NoiseHandler()
+        self.drift = None
+        self.drift_check_interval = int(config.get("drift_check_interval", 300))
+        if config.get("auto_recalibrate", False):
+            self.drift = DriftMonitor(
+                np.asarray(config["corners"], np.float64).reshape(4, 2),
+                threshold_px=float(config.get("drift_threshold_px", 4.0)),
+                max_px=float(config.get("drift_max_px", 80.0)),
+                confirm=int(config.get("drift_confirm_checks", 2)),
+                device=self.device,
+            )
+
+    def capture_reference(self, cap, warmup: int = 10):
+        """Capture the initial visual reference from a camera-like reader
+        after ``warmup`` frames (reference game_session.py:93)."""
+        for _ in range(warmup):
+            cap.read()
+        ok, img = cap.read()
+        if ok:
+            self.capture_reference_frame(img)
 
     def capture_reference_frame(self, img: np.ndarray):
-        """Capture the initial visual reference (reference game_session.py:93)."""
+        """Capture the visual reference from one frame; with drift checks
+        on, the frame also seeds the detector's baseline, so a bump before
+        the first periodic check is still caught."""
         self.pipe_state = self.pipeline.capture_reference(self.pipe_state, img)
+        if self.drift is not None:
+            self.drift.check(img)
         self.log.info("reference captured; game ready")
 
     # -- per-frame hot path ----------------------------------------------
@@ -197,7 +244,17 @@ class GameSession:
 
         noise_state, _ = self.noise.process(visual_changes)
         self._track_radii(vision_occupied, out)
-        return self._process_stable_move(vision_occupied, noise_state)
+        move = self._process_stable_move(vision_occupied, noise_state)
+
+        # The drift check is not gated on the noise FSM: a real bump keeps
+        # the FSM NOISE_ACTIVE (the shifted content never settles), which
+        # would block the very check that heals it; the monitor's own gates
+        # reject a hand over the board.
+        if self.drift is not None and self.frame_count % self.drift_check_interval == 0:
+            new_corners = self.drift.check(img)
+            if new_corners is not None:
+                self._recalibrate(new_corners, img)
+        return move
 
     # -- stability + inference -------------------------------------------
 
@@ -242,6 +299,28 @@ class GameSession:
                             return move
                         self.log.critical("move %s became illegal before push", move.uci())
         return None
+
+    def _recalibrate(self, corners: np.ndarray, frame: np.ndarray):
+        """Rebuild geometry and pipeline around shifted corners, mid-game.
+
+        Unlike configure(), the GAME is kept: a new VisionPipeline of the
+        same kind on the same device, references re-captured from this
+        frame, and the noise, stability and radius windows reset so that no
+        phantom move commits across the boundary. Smart-grid lines are
+        kept: they live in warped-board space, which the new homography
+        maps the same physical board onto."""
+        with self.board_lock:
+            self.config["corners"] = np.rint(np.asarray(corners)).astype(int).tolist()
+            geometry = geo.BoardGeometry.from_config(self.config)
+            self.pipeline = VisionPipeline(geometry, **self._pipeline_kwargs)
+            self.pipe_state = self.pipeline.capture_reference(self.pipeline.init_state(), frame)
+            self.noise.reset()
+            self.stable_count = 0
+            self.stable_occupancy = None
+            self._radius_window.clear()
+            self._extent_window.clear()
+            self._refresh_next = False
+            self.log.warning("auto-recalibrated to shifted corners; game preserved")
 
     def _infer_move(self, diff_missing, diff_extra, vision_occupied):
         """Infer one legal move from occupancy diffs (game_session.py:227-265)."""
@@ -406,3 +485,11 @@ class GameSession:
                 start_fen=None if start == STARTING_FEN else start,
                 result=result, comments=comments, claim_draws=claim_draws,
             )
+
+    def clock_hud(self) -> str:
+        """Clock HUD line; sessions with a clock source override this."""
+        return ""
+
+    def on_exit(self):
+        """Called by the drivers when the session ends; a subclass stops
+        its background work here."""

@@ -201,14 +201,11 @@ def main(argv=None):
                     "20-frame stability gate alone debounces)")
     ap.add_argument("--device", default="cuda", help="torch device, e.g. cuda or cpu")
     ap.add_argument("--auto-recalibrate", action="store_true",
-                    help="not ported yet (ROADMAP A17, drift): raises")
+                    help="detect mid-footage camera bumps and rebuild geometry "
+                    "(session/drift.py)")
     ap.add_argument("--compare-oracle", action="store_true",
                     help="not ported yet (ROADMAP A15, --compare-oracle): raises")
     args = ap.parse_args(argv)
-    if args.auto_recalibrate:
-        raise NotImplementedError(
-            "process_video --auto-recalibrate: drift re-calibration is not ported yet "
-            "(ROADMAP A17, drift)")
 
     if args.corners:
         config = {
@@ -224,6 +221,8 @@ def main(argv=None):
             print(f"no calibration at {args.calibration}; pass --corners", file=sys.stderr)
             return 2
 
+    if args.auto_recalibrate:
+        config = {**config, "auto_recalibrate": True}
     moves, fen, n = run(
         args.video, config, skip_frames=args.skip_frames, out_path=args.out,
         max_frames=args.max_frames, cooldown_seconds=args.cooldown_seconds,

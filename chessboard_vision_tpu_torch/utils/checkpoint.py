@@ -38,6 +38,13 @@ def _fill(template: Any, leaves: Iterator[Any]) -> Any:
     return next(leaves)
 
 
+def tree_map(fn, tree: Any, *rest: Any) -> Any:
+    """``fn`` over the leaves of trees of one structure, taken in turn; the
+    result has ``tree``'s structure."""
+    leaves = [fn(*xs) for xs in zip(tree_leaves(tree), *map(tree_leaves, rest))]
+    return _fill(tree, iter(leaves))
+
+
 def _host_dtype(leaf) -> np.dtype:
     if isinstance(leaf, torch.Tensor):
         return torch.empty(0, dtype=leaf.dtype).numpy().dtype

@@ -121,12 +121,41 @@ the last line:
      path), the output within ROADMAP Queue C 7's limits of the same call on
      the CPU; ms a call at each shape.
 
+9. live path (tools/play_lichess.py, session/lichess_session.py,
+   session/drift.py, native.FrameRing) at 1280x720, the live driver's
+   capture, on the board corners of tests/fixtures.DEFAULT_CORNERS
+   rendered by tools/synth.SynthCamera:
+   - play_lichess.run through the frame ring: a camera thread reads a
+     scripted camera at 30 fps into the ring, the loop steps the newest
+     frame through a LichessSession on the card with a scripted client (no
+     network) and "auto_recalibrate": true: white plays e2e4 (the client
+     must receive the POST), the stream answers e7e5, the camera is bumped
+     by (12, 7) px and the session must recalibrate to within 2 px of the
+     bumped corners, white plays g1f3 at the new corners (committed and
+     POSTed); the final FEN is the script's and the PGN holds the three
+     moves. Printed: frames stepped, passed over and dropped; on_frame
+     p50/p95 with and without a drift check; the recalibration; one drift
+     check's image stages on the card, D2H and host contour stages (host
+     clock, the card synchronized; no profiler).
+   - MultiStreamSession(auto_recalibrate=True) at 1080p on the
+     benchmark's layout, 8 plain streams and then 2 enhanced: rig 0
+     bumped, one rebuild in per-stream-geometry mode, then every rig
+     commits e2e4; the drift check of all rigs and the rebuild timed.
+
+A step's or tick's device busy time and ops (exact, streams) are
+torch.profiler's records summed over a window padded with sleep kernels
+on both sides, printed with the records seen against the launches
+expected (the runtime's launch and copy calls); where records are still
+missing, the busy time comes from CUDA events (held stream, or around the
+calls as an upper bound for a step that synchronizes).
+
 Kernel launch counts are set to 0 just before each path and read just
 after it: the plain path must launch B1 and none of B2-B4, the enhanced
 path all four, with exactly one B3 (histograms + LUTs) and one B4 launch
 per CLAHE call, the exact path none, the streams path all four, the
-footage path all four; B1's 1080p launches must take the TMA kernel. On
-the exact, streams and footage paths the counts are set to 0 just before
+footage path all four, the live path all four (B2-B4 on the enhanced
+streams); B1's 1080p launches must take the TMA kernel. On the exact,
+streams, footage and live paths the counts are set to 0 just before
 each call of the path's pipelines, sessions and entry points and read
 just after it, so the pipelines and plain versions they are compared with
 add nothing. The line before the last is the kernels' JSON record
@@ -139,9 +168,11 @@ import contextlib
 import itertools
 import json
 import os
+import queue
 import re
 import subprocess
 import tempfile
+import threading
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
@@ -165,12 +196,14 @@ from chessboard_vision_tpu_torch.geometry import BoardGeometry
 from chessboard_vision_tpu_torch.ops.layout import positions_to_mask
 from chessboard_vision_tpu_torch.parallel import multistream as tms
 from chessboard_vision_tpu_torch import api
+from chessboard_vision_tpu_torch import geometry
 from chessboard_vision_tpu_torch.parallel.session import MultiStreamSession
 from chessboard_vision_tpu_torch.rules import chess as rules_chess
 from chessboard_vision_tpu_torch.rules.fen import occupancy_to_fen
 from chessboard_vision_tpu_torch.rules.pgn import game_to_pgn
 from chessboard_vision_tpu_torch.session.game_session import GameSession
-from chessboard_vision_tpu_torch.tools import process_video
+from chessboard_vision_tpu_torch.session.lichess_session import LichessSession
+from chessboard_vision_tpu_torch.tools import play_lichess, process_video
 from chessboard_vision_tpu_torch.tools.demo_pipeline import calibrated_session, occupancy_of, play
 from chessboard_vision_tpu_torch.utils import checkpoint as ckpt
 from chessboard_vision_tpu_torch.utils.profiling import FpsCounter, StageTimer
@@ -274,12 +307,68 @@ def device_profile(fn, iters, before=None):
     return busy_us / 1e3 / iters, sum(e.count for e in dev) / iters
 
 
-def busy_text(busy, ops, wall_ms, per):
-    """device_profile's numbers for a line, beside the wall time they share."""
-    if busy is None:
-        return "device busy and ops not measured (torch.profiler saw no device record)"
-    return (f"device busy {busy:.3f} ms{per} ({busy / wall_ms:.1%} of the wall), {ops:.0f} "
-            f"device kernels+copies{per}")
+# The runtime calls that each put one record on the device: kernel
+# launches, async copies and memsets.
+LAUNCH_CALLS = frozenset({"cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                          "cuLaunchKernelEx", "cudaMemcpyAsync", "cudaMemsetAsync"})
+
+
+# Sleep kernels launched on each side of step_busy's window: the profiler
+# loses ~3-13 device records a session (Queue C 15); the pads leave the
+# window's own records whole when the losses fall at the session's ends.
+PAD_LAUNCHES = 32
+
+
+def _pad():
+    for _ in range(PAD_LAUNCHES):
+        torch.cuda._sleep(1)
+
+
+def step_busy(fn, iters):
+    """Device busy ms and device ops per call of a step or tick under
+    torch.profiler, and a note with the device records it saw against the
+    launches it expected (the runtime's launch and copy calls it saw on the
+    host), with PAD_LAUNCHES sleep kernels before and after the calls, left
+    out of both. Where it still saw fewer records than launches, their sum
+    would read low: the busy time comes from CUDA events instead, held_ms
+    (the stream held while every call is enqueued, so the host's gaps do not
+    count) or, for a call that waits for the card inside (held_ms cannot
+    hold it), cuda_ms around the calls, an upper bound. Returns (busy ms,
+    ops, note)."""
+    from torch.autograd import DeviceType
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    pad_keys = profiled(_pad, 1)[0]  # the sleep kernel's key, to leave it out
+
+    def window():
+        _pad()
+        for _ in range(iters):
+            fn()
+        _pad()
+
+    _, prof = profiled(window, 1)
+    events = prof.key_averages()
+    dev = [e for e in events if e.device_type == DeviceType.CUDA and e.key not in pad_keys]
+    seen = sum(e.count for e in dev) / iters
+    launches = sum(e.count for e in events
+                   if e.device_type == DeviceType.CPU and e.key in LAUNCH_CALLS)
+    expected = (launches - (2 * PAD_LAUNCHES if pad_keys else 0)) / iters
+    records = f"{seen:.1f} device records a call seen of {expected:.1f} launches"
+    if dev and seen >= expected:
+        return sum(e.self_device_time_total for e in dev) / 1e3 / iters, seen, records
+    try:
+        return held_ms(fn, iters), expected, f"held-stream CUDA events; torch.profiler: {records}"
+    except RuntimeError:  # the call synchronizes: the stream cannot be held across it
+        return (cuda_ms(fn, iters), expected,
+                f"CUDA events around the calls, an upper bound; torch.profiler: {records}")
+
+
+def busy_text(busy, ops, note, wall_ms, per):
+    """step_busy's numbers for a line, beside the wall time they share."""
+    return (f"device busy {busy:.3f} ms{per} ({busy / wall_ms:.1%} of the wall; {note}), "
+            f"{ops:.0f} device kernels+copies{per}")
 
 
 def held_ms(fn, iters):
@@ -851,8 +940,8 @@ def exact_phase(corners, camera, rng, smi):
     lines = []
     for name, (p, st) in runs.items():
         it = itertools.cycle(frames)
-        busy, ops = device_profile(lambda: p.step(st, next(it), squares_to_check=s2c), 2)
-        lines.append(f"{name} {ms[name]:.3f} ms/frame, {busy_text(busy, ops, ms[name], '')}, "
+        busy = step_busy(lambda: p.step(st, next(it), squares_to_check=s2c), 2)
+        lines.append(f"{name} {ms[name]:.3f} ms/frame, {busy_text(*busy, ms[name], '')}, "
                      f"{syncs[name] / (2 * TIMED_EXACT):.2f} host syncs a step")
     phase("exact", f"exact vs conv on the same {len(exact_occ)} frames: {agreement:.2%} of square "
           f"decisions agree ({differ} differ); {WIDTH}x{HEIGHT} chained steps: "
@@ -979,10 +1068,10 @@ def time_ticks(ms, state, frame_sets, masks, label, smi, ticks=TIMED_TICKS):
     def tick():
         box[0], _ = ms.step(box[0], next(it), s2c_masks=masks)
 
-    busy_ms, ops = device_profile(tick, 5)
+    busy = step_busy(tick, 5)
     phase("streams", f"{label}: {wall_ms:.3f} ms/tick ({n * 1e3 / wall_ms:.1f} frames/s "
           f"aggregate; host pack+upload {pack_ms:.3f} ms, step enqueue incl. pack "
-          f"{enqueue_ms:.3f} ms), {busy_text(busy_ms, ops, wall_ms, '/tick')}, peak memory "
+          f"{enqueue_ms:.3f} ms), {busy_text(*busy, wall_ms, '/tick')}, peak memory "
           f"{peak_gb:.3f} GB (torch.cuda.max_memory_allocated); on {smi}")
     return box[0]
 
@@ -1585,6 +1674,338 @@ def whole_frame_phase(frame, smi):
           "us/call vs plain and bound: " + "; ".join(parts) + f"; on {smi}")
 
 
+# The live phase: play_lichess's loop on a LichessSession at the live
+# driver's capture size, with drift re-calibration.
+LIVE_HEIGHT, LIVE_WIDTH = play_lichess.HEIGHT, play_lichess.WIDTH
+LIVE_CORNERS = np.array([[260, 80], [1020, 95], [240, 640], [1035, 655]])  # tests/fixtures.py
+LIVE_BUMP = np.array([12, 7])  # a rigid camera nudge, px
+LIVE_FPS = 30.0  # the camera's rate
+# The scripted camera: (frames, position after these moves, bumped).
+LIVE_SCRIPT = ((45, 0, False), (75, 1, False), (60, 2, False), (90, 2, True), (90, 3, True))
+LIVE_MOVES = ("e2e4", "e7e5", "g1f3")  # white, the opponent (from the stream), white
+LIVE_INTERVAL = 15  # drift_check_interval of the live session, in processed frames
+LIVE_RENDERS = 8  # distinct renders a (position, corners), cycled
+LIVE_STREAMS, LIVE_STREAM_INTERVAL = 8, 5
+LIVE_TICKS = 60  # bound on the ticks of each stage of the multi-stream games
+DRIFT_REPS = 5
+
+
+class ScriptedCamera:
+    """A camera over rendered frames, read at ``fps`` at most (read blocks
+    until the next frame is due, as a camera's does); once the script is
+    over it reports no frame, as an unplugged camera does."""
+
+    def __init__(self, frames, fps):
+        self._frames, self._period, self._next = frames, 1.0 / fps, 0
+        self._due = None
+        self.done = threading.Event()
+
+    def read(self):
+        if self._next >= len(self._frames):
+            self.done.set()
+            time.sleep(self._period)
+            return False, None
+        now = time.perf_counter()
+        if self._due is not None and now < self._due:
+            time.sleep(self._due - now)
+        self._due = max(self._due or now, now) + self._period
+        self._next += 1
+        return True, self._frames[self._next - 1]
+
+    def release(self):
+        self._next = len(self._frames)
+
+
+class ScriptedLichess:
+    """The Board API surface LichessSession uses, in memory: POSTs are
+    recorded and accepted; the stream echoes each of our moves and answers
+    e2e4 with the opponent's e7e5 after ``reply_s``."""
+
+    def __init__(self, reply_s=0.2):
+        self.sent, self.my_color, self.clock = [], "white", None
+        self._moves, self._events, self.reply_s = [], queue.Queue(), reply_s
+
+    def connect(self):
+        return True
+
+    def get_ongoing_games(self):
+        return [{"gameId": "smoke1"}]
+
+    def make_move(self, uci):
+        self.sent.append(uci)
+        self._moves.append(uci)
+        self._events.put((0.0, " ".join(self._moves)))
+        if uci == LIVE_MOVES[0]:
+            self._moves.append(LIVE_MOVES[1])
+            self._events.put((self.reply_s, " ".join(self._moves)))
+        return True
+
+    def is_my_turn(self, moves):
+        return (len(moves.split()) if moves else 0) % 2 == 0
+
+    def get_last_move(self, moves):
+        return moves.split()[-1] if moves else None
+
+    def handle_draw_offer(self, accept):
+        return True
+
+    def stream_game_with_reconnect(self, game_id, stop_check=None):
+        yield {"type": "gameFull", "state": {"moves": "", "status": "started"}}
+        while not stop_check():
+            try:
+                delay, moves = self._events.get(timeout=0.02)
+            except queue.Empty:
+                continue
+            time.sleep(delay)
+            yield {"type": "gameState", "status": "started", "moves": moves}
+
+
+def live_boards():
+    boards = [rules_chess.Board()]
+    for uci in LIVE_MOVES:
+        b = rules_chess.Board(boards[-1].fen())
+        b.push_uci(uci)
+        boards.append(b)
+    return boards
+
+
+def drift_split_ms(frame, reps=DRIFT_REPS):
+    """The median ms of one drift check's three parts on a frame (host
+    clock, the card synchronized): the image stages on the card (upload,
+    the ~60 torch ops, the Canny's readbacks), the D2H of the mask, and the
+    host contour stages; and the corners found."""
+    parts = [[], [], []]
+    for i in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mask = geometry.board_edge_mask(frame, DEVICE)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        host = mask.cpu().numpy()
+        t2 = time.perf_counter()
+        found = geometry.corners_from_mask(host)
+        t3 = time.perf_counter()
+        if i:  # the first call warms up
+            for part, t in zip(parts, (t1 - t0, t2 - t1, t3 - t2)):
+                part.append(t * 1e3)
+    return [float(np.median(p)) for p in parts], found
+
+
+def _pct(xs, q):
+    return float(np.percentile(xs, q)) if xs else float("nan")
+
+
+def live_game_phase(smi, launches):
+    """play_lichess.run through the frame ring on a LichessSession on the
+    card with a scripted client: e2e4 committed and POSTed, e7e5 from the
+    stream, a camera bump healed by a rebuilt geometry, g1f3 committed at
+    the new corners; the final FEN and the PGN as scripted."""
+    boards = live_boards()
+    bumped = LIVE_CORNERS + LIVE_BUMP
+    cams = {False: SynthCamera(LIVE_CORNERS, frame_size=(LIVE_HEIGHT, LIVE_WIDTH)),
+            True: SynthCamera(bumped, frame_size=(LIVE_HEIGHT, LIVE_WIDTH))}
+    kinds = sorted({(pos, bump) for _, pos, bump in LIVE_SCRIPT} | {(0, False)})
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(8) as pool:
+        renders = dict(zip(kinds, pool.map(
+            lambda k: [cams[k[1]].render(occupancy_of(boards[k[0]]),
+                                         np.random.default_rng((40, k[0], k[1], i)))
+                       for i in range(LIVE_RENDERS)], kinds)))
+    frames = [renders[0, False][i % LIVE_RENDERS] for i in range(11)]  # the calibration's
+    for n, pos, bump in LIVE_SCRIPT:
+        frames += [renders[pos, bump][i % LIVE_RENDERS] for i in range(n)]
+    phase("live", f"rendered {len(kinds) * LIVE_RENDERS} frames of {LIVE_WIDTH}x{LIVE_HEIGHT} "
+          f"in {time.perf_counter() - t0:.1f} s; the camera plays {len(frames)} at "
+          f"{LIVE_FPS:g} fps")
+
+    client = ScriptedLichess()
+    camera = ScriptedCamera(frames, LIVE_FPS)
+    config = {"corners": LIVE_CORNERS.tolist(), "player_color": "white",
+              "orientation_flipped": False, "auto_recalibrate": True,
+              "drift_check_interval": LIVE_INTERVAL}
+    with counted(launches) as got:
+        session = LichessSession(client=client, device=DEVICE)
+        check(session.on_calibration_requested(camera, config=config),
+              "live: calibration from the camera failed")
+        check(session.drift is not None and session.drift._baseline is not None,
+              "live: the calibration frame did not seed the drift baseline")
+        check(session.connect_and_setup(interactive=False) and session.game_id == "smoke1",
+              "live: connect_and_setup with the scripted client failed")
+        steps, recals = {"check": [], "plain": []}, []
+        on_frame, recalibrate = session.on_frame, session._recalibrate
+
+        def timed_on_frame(img):
+            t = time.perf_counter()
+            move = on_frame(img)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            if recals and recals[-1][0] == session.frame_count:
+                recals[-1] += (ms,)  # the frame that recalibrated: timed apart
+            else:
+                steps["check" if session.frame_count % LIVE_INTERVAL == 0 else "plain"].append(ms)
+            return move
+
+        def timed_recalibrate(corners, frame):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            recalibrate(corners, frame)
+            torch.cuda.synchronize()
+            recals.append((session.frame_count, (time.perf_counter() - t) * 1e3))
+
+        session.on_frame, session._recalibrate = timed_on_frame, timed_recalibrate
+
+        def wait_key(ms):  # cv2.waitKey's wait, and 'q' once the camera is over
+            time.sleep(ms / 1e3)
+            return ord("q") if camera.done.is_set() else -1
+
+        with tempfile.TemporaryDirectory() as tmp:
+            pgn_path = os.path.join(tmp, "game.pgn")
+            t0 = time.perf_counter()
+            result = play_lichess.run(session, camera, wait_key, use_ring=True, pgn=pgn_path)
+            wall = time.perf_counter() - t0
+            with open(pgn_path) as fh:
+                pgn = fh.read()
+        session._stream_thread.join(timeout=5)
+    check(not session._stream_thread.is_alive(), "live: the stream thread did not end")
+    check(client.sent == [LIVE_MOVES[0], LIVE_MOVES[2]],
+          f"live: the client received the POSTs {client.sent}, want e2e4 and g1f3")
+    check(len(recals) == 1, f"live: {len(recals)} recalibrations, want 1")
+    got_corners = np.asarray(session.config["corners"], np.float64)
+    err = float(np.abs(got_corners - bumped).max())
+    check(err <= 2.0, f"live: recalibrated to {session.config['corners']}, bumped truth "
+          f"{bumped.tolist()} ({err} px off)")
+    check(session.game.get_fen() == boards[-1].fen(),
+          f"live: FEN {session.game.get_fen()} != scripted {boards[-1].fen()}")
+    check("1. e4 e5 2. Nf3" in pgn and pgn == session.to_pgn(),
+          f"live: the PGN does not hold the three moves:\n{pgn}")
+    check(got["score_matmul"] >= result.frames,
+          f"live: B1 launched {got['score_matmul']} times for {result.frames} steps")
+    check(not any(got[k] for k in COUNTERS if k != "score_matmul"),
+          f"live: the plain live path launched an enhancement kernel: {got}")
+    (dev, d2h, host), found = drift_split_ms(frames[-1])
+    check(np.abs(found.reshape(4, 2) - bumped).max() <= 10, f"live: detector found {found}")
+    frame_no, recal_ms, recal_frame_ms = recals[0]
+    phase("live", f"play_lichess.run through the frame ring at {LIVE_WIDTH}x{LIVE_HEIGHT}: "
+          f"{result.frames} frames stepped of {len(frames) - 11} in {wall:.1f} s ({result.skipped} "
+          f"passed over to step the newest, {result.dropped} dropped by the ring); POSTed {client.sent}, e7e5 from the stream; the bump healed on "
+          f"frame {frame_no} to corners {session.config['corners']} ({err} px from the bumped "
+          f"truth); FEN {session.game.get_fen()}; PGN 1. e4 e5 2. Nf3; launches {got}")
+    phase("live", f"on_frame (host clock, synchronized): without a check p50 "
+          f"{_pct(steps['plain'], 50):.3f} / p95 {_pct(steps['plain'], 95):.3f} ms "
+          f"({len(steps['plain'])} frames), with a drift check p50 "
+          f"{_pct(steps['check'], 50):.3f} / p95 {_pct(steps['check'], 95):.3f} ms "
+          f"({len(steps['check'])} frames); the recalibrating frame {recal_frame_ms:.3f} ms, "
+          f"of which _recalibrate (pipeline build + reference capture) {recal_ms:.3f} ms; "
+          f"one drift check at {LIVE_WIDTH}x{LIVE_HEIGHT} (median of {DRIFT_REPS}): image "
+          f"stages on the card {dev:.3f} ms, D2H of the mask {d2h:.3f} ms, host contours "
+          f"{host:.3f} ms; on {smi}")
+
+
+def live_streams_phase(smi, launches):
+    """MultiStreamSession(auto_recalibrate=True) at 1080p on the benchmark's
+    layout: rig 0 bumped, one rebuild in per-stream-geometry mode, then every
+    rig commits e2e4; once with LIVE_STREAMS plain streams, once enhanced
+    with two (B2-B4 on rebuilt per-stream tile plans)."""
+    corners = bench_corners(HEIGHT, WIDTH)
+    g = BoardGeometry.from_calibration(corners, display_size=(WIDTH, HEIGHT))
+    bumped = corners + LIVE_BUMP
+    cams = {b: SynthCamera(c, frame_size=(HEIGHT, WIDTH), board_px=g.board_size)
+            for b, c in ((False, corners), (True, bumped))}
+    start, after = live_boards()[:2]
+    kinds = [(b, bump) for b in (0, 1) for bump in (False, True)]
+    with ThreadPoolExecutor(8) as pool:
+        renders = dict(zip(kinds, pool.map(
+            lambda k: [cams[k[1]].render(occupancy_of((start, after)[k[0]]),
+                                         np.random.default_rng((41, k[0], k[1], i)))
+                       for i in range(3)], kinds)))
+    (dev, d2h, host), found = drift_split_ms(renders[0, True][0])
+    check(np.abs(found.reshape(4, 2) - bumped).max() <= 10, f"live streams: found {found}")
+    phase("live", f"one drift check at {WIDTH}x{HEIGHT} (median of {DRIFT_REPS}): image stages "
+          f"on the card {dev:.3f} ms, D2H of the mask {d2h:.3f} ms, host contours {host:.3f} "
+          f"ms; on {smi}")
+
+    def tick(t, n, pos, bump):
+        return np.stack([renders[pos, bump and s == 0][(t + s) % 3] for s in range(n)])
+
+    for n, enhanced in ((LIVE_STREAMS, False), (2, True)):
+        label = f"{'enhanced ' if enhanced else ''}{n} streams"
+        with counted(launches) as got:
+            sess = MultiStreamSession(g, n, auto_recalibrate=True,
+                                      drift_check_interval=LIVE_STREAM_INTERVAL,
+                                      with_enhancer=enhanced, device=DEVICE)
+            sess.MOVE_COOLDOWN = 0.0
+            sess.capture_reference(tick(0, n, 0, False))
+            checks, check_drift = [], sess._check_drift
+
+            def timed_check(frames):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                check_drift(frames)
+                torch.cuda.synchronize()
+                checks.append(((time.perf_counter() - t) * 1e3, sess.ms._stream_plans is not None))
+
+            sess._check_drift = timed_check
+            for t in range(LIVE_STREAM_INTERVAL):
+                check(not any(sess.on_frames(tick(t, n, 0, False))), f"{label}: early commit")
+            t = 0
+            while sess.ms._stream_plans is None and t < LIVE_TICKS:
+                sess.on_frames(tick(t, n, 0, True))
+                t += 1
+            check(sess.ms._stream_plans is not None, f"{label}: no per-stream rebuild")
+            rebuilt_at = sess.frame_count
+            err = float(np.abs(np.asarray(sess.geometries[0].src_corners) - bumped).max())
+            check(err <= 2.0, f"{label}: rig 0 recalibrated {err} px off the bumped truth")
+            check(all(np.array_equal(geo.src_corners, corners) for geo in sess.geometries[1:]),
+                  f"{label}: an unbumped rig's corners moved")
+            before = {name: fn.launches for name, fn in COUNTERS.items()}
+            committed = [None] * n
+            for t in range(LIVE_TICKS):
+                for s, m in enumerate(sess.on_frames(tick(t, n, 1, True))):
+                    if m:
+                        committed[s] = m.uci()
+                if all(committed):
+                    break
+            after_rebuild = {name: fn.launches - before[name] for name, fn in COUNTERS.items()}
+        ticks = sess.frame_count - rebuilt_at
+        k = n * ticks if enhanced else 0
+        want = {"score_matmul": ticks, "bilateral": k, "clahe_hist": 0, "clahe_hist_luts": k,
+                "clahe_apply": k}
+        check(after_rebuild == want, f"{label}: launches on the rebuilt per-stream plans "
+              f"{after_rebuild}, want {want} (B1 once a tick, B2-B4 once a stream a tick)")
+        check(all(st.game.get_fen() == after.fen() for st in sess.streams), f"{label}: FEN")
+        check(got["score_matmul"] >= sess.frame_count, f"{label}: B1 launches {got}")
+        plain = [ms for ms, rebuilt in checks if not rebuilt]
+        confirming = [ms for ms, rebuilt in checks if rebuilt][0]
+        # The rebuild alone, as _check_drift makes it: the per-stream
+        # pipeline and the reference capture of one tick's frames.
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ms = tms.MultiStreamPipeline(sess.geometries, n_streams=n, **sess._pipeline_kw)
+        ms.capture_reference(ms.init_state(), tick(0, n, 1, True))
+        torch.cuda.synchronize()
+        rebuild = (time.perf_counter() - t0) * 1e3
+        del ms
+        phase("live", f"MultiStreamSession, {label} at {WIDTH}x{HEIGHT}, rig 0 bumped: rebuilt in "
+              f"per-stream-geometry mode on tick {rebuilt_at} (rig 0 {err} px from the bumped "
+              f"truth, the others unchanged), then every rig committed e2e4 by tick "
+              f"{sess.frame_count}; drift check of {n} rigs {np.median(plain):.3f} ms (median of "
+              f"{len(plain)}), the confirming tick's checks + rebuild + reference capture "
+              f"{confirming:.3f} ms, a rebuild alone (pipeline build + reference capture) "
+              f"{rebuild:.3f} ms; launches {got}, {after_rebuild} of them on the rebuilt plans "
+              f"over {ticks} ticks; on {smi}")
+
+
+def live_phase(smi):
+    """The live path, with every count set to 0 just before each call of
+    the path and read just after it. Returns the path's counts."""
+    launches = collections.Counter()
+    live_game_phase(smi, launches)
+    live_streams_phase(smi, launches)
+    counts = {name: launches[name] for name in COUNTERS}
+    phase("live", f"kernel launches on this path: {counts} (B1: {counts['score_matmul']})")
+    return counts
+
+
 def main():
     t_start = time.perf_counter()
 
@@ -1643,9 +2064,15 @@ def main():
     check(footage["clahe_hist"] == 0, "the footage path launched the histogram-only B3")
     elapsed("footage path")
 
+    live = live_phase(smi)
+    missing = [k for k in COUNTERS if k != "clahe_hist" and live[k] == 0]
+    check(not missing, f"the live path never launched {missing}")
+    check(live["clahe_hist"] == 0, "the live path launched the histogram-only B3")
+    elapsed("live path")
+
     for rec in records:
         w = PATH_WRAPPER.get(rec["name"], rec["name"])
-        rec["launches"] = plain[w] + enhanced[w] + streams[w] + footage[w]
+        rec["launches"] = plain[w] + enhanced[w] + streams[w] + footage[w] + live[w]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: rec[k] for k in keys} for rec in records]}), flush=True)

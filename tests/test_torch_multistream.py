@@ -424,8 +424,13 @@ def test_exact_backend_tick_matches_jax():
 
 def test_session_surface():
     g = tgeo.BoardGeometry.from_calibration(DEFAULT_CORNERS)
-    with pytest.raises(NotImplementedError, match="A17"):
-        TorchSession(g, n_streams=2, auto_recalibrate=True, device="cpu")
+    sess = TorchSession(g, n_streams=2, auto_recalibrate=True, drift_check_interval=9,
+                        drift_threshold_px=3.0, drift_max_px=50.0, drift_confirm=3, device="cpu")
+    assert len(sess.drift) == 2 and sess.drift_check_interval == 9
+    for mon in sess.drift:
+        assert (mon.threshold_px, mon.max_px, mon.confirm) == (3.0, 50.0, 3)
+        np.testing.assert_array_equal(mon.corners, DEFAULT_CORNERS)
+    assert TorchSession(g, n_streams=2, device="cpu").drift is None
     with pytest.raises(ValueError, match="grid structure"):
         bad = tgeo.BoardGeometry.from_calibration(DEFAULT_CORNERS // 2, display_size=(640, 360))
         tms.MultiStreamPipeline([g, bad], n_streams=2, device="cpu")

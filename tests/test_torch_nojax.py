@@ -1,21 +1,24 @@
-"""The port runs without jax, cv2 and the JAX package, as on a machine
-that has none of them.
+"""The port runs without jax, cv2, requests and the JAX package, as on a
+machine that has none of them.
 
-A subprocess blocks the three imports (``sys.modules[name] = None``),
+A subprocess blocks the four imports (``sys.modules[name] = None``),
 imports every module of the port and runs one plain and one enhanced
 pipeline step (conv Hough, planar frames), one exact-backend step on an
-HWC tensor (the gather warp), one 2-stream tick, ``api.frame_to_fen`` and
-a recorded game through ``process_video.run_capture`` fed from memory, on
-the CPU on frames from the numpy-only renderer (tools/synth.py), with the
-geometry from the port's own copy. The port's copies of the JAX package's
-host modules (``geometry``, ``rules``) give the same arrays, moves and FEN
-as the originals.
+HWC tensor (the gather warp), one 2-stream tick, ``api.frame_to_fen``, a
+recorded game through ``process_video.run_capture`` fed from memory, the
+cv2-free corner detector and the frame ring, on the CPU on frames from the
+numpy-only renderer (tools/synth.py), with the geometry from the port's
+own copy. The port's copies of the JAX package's host modules
+(``geometry``, ``rules``) give the same arrays, moves and FEN as the
+originals.
 
-The port's sources import neither jax nor the JAX package, and cv2 at one
-site only: ``tools/process_video.open_video``, which decodes a video file
-and needs cv2's codecs. That import sits inside the function, so the
-pipeline, the session and ``run_capture`` run without cv2, as the
-subprocess shows.
+The port's sources import neither jax nor the JAX package, and cv2 at two
+sites only, each inside a function: ``tools/process_video.open_video``,
+which decodes a video file and needs cv2's codecs, and
+``tools/play_lichess.main``, which opens the camera and HighGUI. So the
+pipeline, the sessions, ``run_capture`` and the live loop run without cv2,
+as the subprocess shows. ``requests`` is imported only inside the Lichess
+client's methods.
 """
 
 import ast
@@ -42,6 +45,7 @@ import importlib, pkgutil, sys
 sys.modules["jax"] = None
 sys.modules["cv2"] = None
 sys.modules["chessboard_vision_tpu"] = None
+sys.modules["requests"] = None
 import numpy as np
 import torch
 import chessboard_vision_tpu_torch as port
@@ -53,7 +57,8 @@ assert len(names) >= 25, names
 for name in ("ops.fsm", "ops.hough", "ops.warp", "parallel", "parallel.multistream",
              "parallel.session", "utils.checkpoint", "api", "tools.process_video",
              "rules.piece_types", "session.board_verifier", "models.change_detector",
-             "utils.profiling"):
+             "utils.profiling", "contours", "session.drift", "net.lichess_client",
+             "session.lichess_session", "native", "tools.play_lichess"):
     assert port.__name__ + "." + name in names, name
 
 from chessboard_vision_tpu_torch import geometry as geo
@@ -101,7 +106,16 @@ config = {"corners": corners.tolist(), "display_size": [1280, 720]}
 moves, final_fen, n = process_video.run_capture(
     process_video.FrameReader(frames), config, skip_frames=1, device="cpu")
 assert (moves, final_fen, n) == (["e2e4"], script.fen(), 22), (moves, final_fen, n)
-assert not any(m == "jax" or m.startswith(("jax.", "jaxlib", "cv2", "chessboard_vision_tpu."))
+det = geo.find_chessboard_corners(cam.render(occ, rng), device="cpu")
+assert det.shape == (4, 1, 2) and np.abs(det.reshape(4, 2) - corners).max() <= 10, det
+from chessboard_vision_tpu_torch.native import FrameRing
+ring = FrameRing((2, 3), n_slots=2)
+assert ring.push(np.arange(6, dtype=np.uint8).reshape(2, 3)) == 1
+seq, got = ring.pop()
+assert seq == 1 and got.tolist() == [[0, 1, 2], [3, 4, 5]] and ring.pop() == (0, None)
+ring.close()
+assert not any(m == "jax" or m.startswith(("jax.", "jaxlib", "cv2", "chessboard_vision_tpu.",
+                                           "requests"))
                for m in sys.modules if sys.modules[m] is not None)
 print("NOJAX_OK", len(names))
 """
@@ -151,16 +165,23 @@ def _import_sites(path, names):
 
 
 def test_port_sources_never_import_jax_or_cv2():
-    """No jax anywhere; cv2 at exactly one site, inside the body of
-    tools/process_video.open_video (a file's codec), never at module level."""
+    """No jax anywhere; cv2 at exactly two sites, each inside the body of a
+    function, never at module level: tools/process_video.open_video (a
+    file's codec) and tools/play_lichess.main (the camera and HighGUI).
+    requests only inside functions of net/lichess_client.py."""
     files = list(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
-    allowed = (PORT / "tools" / "process_video.py", "open_video")
-    sites = {p: _import_sites(p, {"jax", "jaxlib", "cv2"}) for p in files}
+    allowed = {(PORT / "tools" / "process_video.py", "open_video"),
+               (PORT / "tools" / "play_lichess.py", "main")}
+    client = PORT / "net" / "lichess_client.py"
+    sites = {p: _import_sites(p, {"jax", "jaxlib", "cv2", "requests"}) for p in files}
     offenders = [(str(p), s) for p, ss in sites.items() for s in ss
-                 if not (s[0] == "cv2" and (p, s[1]) == allowed)]
+                 if not (s[0] == "cv2" and (p, s[1]) in allowed)
+                 and not (s[0] == "requests" and p == client and s[1] is not None)]
     assert not offenders
-    cv2_sites = [s for s in sites[allowed[0]] if s[0] == "cv2"]
-    assert cv2_sites == [("cv2", "open_video", 4)], cv2_sites
+    cv2_sites = sorted((p.name, s) for p, ss in sites.items() for s in ss if s[0] == "cv2")
+    assert cv2_sites == [("play_lichess.py", ("cv2", "main", 4)),
+                         ("process_video.py", ("cv2", "open_video", 4))], cv2_sites
+    assert len(sites[client]) >= 5  # the client's HTTP methods, each importing it
 
 
 def test_port_imports_only_the_jax_free_host_modules_of_the_reference():

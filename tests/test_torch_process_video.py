@@ -23,6 +23,7 @@ import torch
 from chessboard_vision_tpu import rules as jrules
 from chessboard_vision_tpu.rules import chess
 from chessboard_vision_tpu.tools import process_video as jpv
+from chessboard_vision_tpu_torch.session.drift import DriftMonitor
 from chessboard_vision_tpu_torch.tools import process_video as tpv
 from chessboard_vision_tpu_torch.tools.demo_pipeline import occupancy_of
 
@@ -138,11 +139,12 @@ def test_run_capture_from_memory_equals_run_on_the_file(runs, clip, tmp_path):
     assert reader.read() == (False, None)  # released
 
 
-def test_main_writes_pgn_and_refuses_what_is_not_ported(clip, tmp_path, capsys):
+def test_main_writes_pgn_and_refuses_what_is_not_ported(clip, tmp_path, capsys, monkeypatch):
     """main --pgn on the CPU commits e2e4 within 24 processed frames and
     writes the PGN the JAX tool's main writes for it (the JAX rules' PGN
-    with the same headers); --auto-recalibrate, compare_oracle and the
-    config key raise, naming their ROADMAP items."""
+    with the same headers); compare_oracle raises, naming its ROADMAP item.
+    --auto-recalibrate turns the session's drift checks on (the reference
+    frame seeds the baseline) and digitizes the same game."""
     path, _, _ = clip
     corners = " ".join(f"{x},{y}" for x, y in DEFAULT_CORNERS)
     pgn = str(tmp_path / "game.pgn")
@@ -152,14 +154,21 @@ def test_main_writes_pgn_and_refuses_what_is_not_ported(clip, tmp_path, capsys):
         assert fh.read() == jrules.game_to_pgn(
             ["e2e4"], headers={"Event": "digitized recording"}, claim_draws=True)
     assert "1 moves over 24 processed frames" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="ROADMAP A17"):
-        tpv.main([path, "--corners", corners, "--auto-recalibrate", "--device", "cpu"])
+    checks = []
+    check = DriftMonitor.check
+    monkeypatch.setattr(DriftMonitor, "check",
+                        lambda self, frame: checks.append(frame.shape) or check(self, frame))
+    drift_pgn = str(tmp_path / "drift.pgn")
+    assert tpv.main([path, "--corners", corners, "--skip-frames", "1", "--max-frames", "24",
+                     "--pgn", drift_pgn, "--auto-recalibrate", "--device", "cpu"]) == 0
+    assert checks == [(720, 1280, 3)]  # the baseline; the next check is due on frame 300
+    with open(pgn) as fh, open(drift_pgn) as dfh:
+        assert dfh.read() == fh.read()
+    assert "1 moves over 24 processed frames" in capsys.readouterr().out
     with pytest.raises(NotImplementedError, match="ROADMAP A15"):
         tpv.main([path, "--corners", corners, "--compare-oracle", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="ROADMAP A15"):
         tpv.run(path, dict(CONFIG), compare_oracle=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A17"):
-        tpv.run(path, {**CONFIG, "auto_recalibrate": True}, device="cpu")
 
 
 def _decoded_clip_hash(path):

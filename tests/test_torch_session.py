@@ -105,13 +105,48 @@ def test_session_needs_the_card_unless_asked_for_the_cpu():
         TorchSession()
 
 
-def test_headless_false_and_auto_recalibrate_are_not_ported():
-    """The renderer and drift re-calibration wait for ROADMAP A17: asking
-    for them raises, naming the item."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A17"):
+def test_headless_false_and_auto_recalibrate_are_not_ported(monkeypatch, tmp_path):
+    """The renderer and the interactive calibration tool wait for ROADMAP
+    A15: asking for them raises, naming the item. Drift re-calibration is
+    ported: ``"auto_recalibrate"`` (here through default_config_overrides,
+    as play_lichess --auto-recalibrate sets it) gives the session a drift
+    monitor on its device with the config's gates, and the calibration
+    sets orientation_flipped as in the JAX package."""
+    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
         TorchSession(device="cpu", headless=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP A17"):
-        TorchSession(device="cpu").configure({**CONFIG, "auto_recalibrate": True})
+    monkeypatch.chdir(tmp_path)  # no calibration.json here
+    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
+        TorchSession(device="cpu").on_calibration_requested(cap=object())
+    assert not TorchSession(device="cpu").on_calibration_requested()
+    sess = TorchSession(device="cpu")
+    sess.default_config_overrides = {"auto_recalibrate": True}
+    assert sess.on_calibration_requested(config={**CONFIG, "orientation_flipped": True,
+                                                 "drift_check_interval": 7,
+                                                 "drift_threshold_px": 3.0})
+    assert sess.config["auto_recalibrate"] and sess.orientation_flipped
+    assert sess.drift_check_interval == 7 and sess.drift.threshold_px == 3.0
+    np.testing.assert_array_equal(sess.drift.corners, DEFAULT_CORNERS)
+    assert torch.device(sess.drift.device).type == "cpu"
+    assert sess.clock_hud() == "" and sess.on_exit() is None
+
+
+def test_capture_reference_reads_the_camera_after_its_warmup():
+    """on_calibration_requested(cap, config) configures, then takes the
+    reference from the frame the reader gives after ``warmup`` frames, as
+    the JAX session does: both sessions then hold the same references."""
+    from chessboard_vision_tpu_torch.tools.process_video import FrameReader
+
+    rng = np.random.default_rng(21)
+    frames = [make_board_frame(occupancy_of(chess.Board()), rng) for _ in range(12)]
+    jsess = jax_session_mod.GameSession(headless=True)
+    tsess = TorchSession(device="cpu")
+    jcap, tcap = FrameReader(frames), FrameReader(frames)
+    assert jsess.on_calibration_requested(jcap, config=dict(CONFIG))
+    assert tsess.on_calibration_requested(tcap, config=dict(CONFIG))
+    assert jcap.read()[1] is frames[11] and tcap.read()[1] is frames[11]
+    np.testing.assert_array_equal(tsess.pipe_state.piece.ref_gray.cpu().numpy(),
+                                  np.asarray(jsess.pipe_state.piece.ref_gray))
+    assert tsess.pipe_state.piece.has_ref.all()
 
 
 def test_demo_pipeline_plays_a_scripted_move(capsys):
