@@ -102,8 +102,11 @@ class ImageEnhancer:
         self.device = resolve_device(device, "ImageEnhancer")
 
     def _run(self, fn, frame) -> np.ndarray:
+        """fn on the frame's planar tensor on the device; the result as a
+        C-contiguous HWC array on the host, as cv2 returns it (cv2 draws
+        only on such arrays)."""
         planar = torch.as_tensor(to_planar(frame), device=self.device)
-        return _hwc(fn(planar)).cpu().numpy()
+        return _hwc(fn(planar)).contiguous().cpu().numpy()
 
     def apply_color_profile(self, frame) -> np.ndarray:
         return self._run(lambda x: apply_color_profile(x, self.profile), frame)

@@ -450,9 +450,10 @@ class VisionPipeline:
     def warp_board(self, frame) -> np.ndarray:
         """The top-down board of an (H, W, 3) HWC BGR u8 frame, (B, B, 3) u8
         on the host, by the gather warp (ops/warp.py) on the pipeline's
-        device (UI, calibration and api.extract_grid)."""
+        device (UI, calibration and api.extract_grid). Its lerps round op by
+        op, as the JAX ``warp_board``, which runs outside jit."""
         frame_dev = torch.as_tensor(np.asarray(frame, np.uint8), device=self.device)
-        return warp_ops.frame_to_board(frame_dev, self.consts.dg).cpu().numpy()
+        return warp_ops.frame_to_board(frame_dev, self.consts.dg, contract=False).cpu().numpy()
 
 
 def is_hwc(frames) -> bool:

@@ -54,11 +54,15 @@ class DeviceGeometry(NamedTuple):
         )
 
 
-def warp_bilinear(img: torch.Tensor, X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
+def warp_bilinear(img: torch.Tensor, X: torch.Tensor, Y: torch.Tensor,
+                  contract: bool = True) -> torch.Tensor:
     """Inverse-map bilinear warp with a constant-0 border (cv2 semantics).
 
     img: (..., H, W, C) u8 with any leading axes. X, Y: (outH, outW) f32
-    source coordinates. Returns (..., outH, outW, C) u8."""
+    source coordinates. Returns (..., outH, outW, C) u8. ``contract``
+    rounds the three lerps as the JAX warp inside a jitted step
+    (XLA:CPU's fused multiply-adds); without it each product and sum is
+    rounded to f32, as the JAX warp run op by op (its ``warp_board``)."""
     H, W = img.shape[-3], img.shape[-2]
     flat = img.reshape(img.shape[:-3] + (H * W, img.shape[-1]))
     ixf, iyf = torch.floor(X), torch.floor(Y)
@@ -77,9 +81,15 @@ def warp_bilinear(img: torch.Tensor, X: torch.Tensor, Y: torch.Tensor) -> torch.
         return v.double() * inb[..., None]
 
     p00, p01, p10, p11 = tap(0, 0), tap(0, 1), tap(1, 0), tap(1, 1)
-    top = torch.addcmul(p00, fx, p01 - p00).float()
-    bot = torch.addcmul(p10, fx, p11 - p10).float()
-    val = fma(fy, bot - top, top)
+    if contract:
+        top = torch.addcmul(p00, fx, p01 - p00).float()
+        bot = torch.addcmul(p10, fx, p11 - p10).float()
+        val = fma(fy, bot - top, top)
+    else:  # integer taps and exact fractions: f32 arithmetic, op by op
+        p00, p01, p10, p11, fx, fy = (t.float() for t in (p00, p01, p10, p11, fx, fy))
+        top = p00 + fx * (p01 - p00)
+        bot = p10 + fx * (p11 - p10)
+        val = top + fy * (bot - top)
     return torch.round(val).clamp(0, 255).to(torch.uint8)
 
 
@@ -101,10 +111,11 @@ def extract_gray_squares(board: torch.Tensor, g: DeviceGeometry) -> torch.Tensor
     return out.reshape(board.shape[:-2] + tuple(g.sq_iy.shape))
 
 
-def frame_to_board(frame: torch.Tensor, g: DeviceGeometry) -> torch.Tensor:
+def frame_to_board(frame: torch.Tensor, g: DeviceGeometry,
+                   contract: bool = True) -> torch.Tensor:
     """(..., Hf, Wf, 3) camera frame -> (..., B, B, 3) top-down board
-    (orientation flip baked into the maps)."""
-    return warp_bilinear(frame, g.warp_X, g.warp_Y)
+    (orientation flip baked into the maps); ``contract`` as warp_bilinear."""
+    return warp_bilinear(frame, g.warp_X, g.warp_Y, contract)
 
 
 def frame_to_squares(frame: torch.Tensor, g: DeviceGeometry) -> torch.Tensor:

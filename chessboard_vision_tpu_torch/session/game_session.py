@@ -27,11 +27,16 @@ the frame (its image stages on the session's device); a confirmed camera
 bump rebuilds the geometry and the pipeline around the shifted corners and
 re-captures the references, the game kept (``_recalibrate``).
 
-``headless`` defaults to True here, where the JAX package's GameSession
-defaults to False: the port has no renderer yet, and ``headless=False``
-raises (ROADMAP A15), as does ``on_calibration_requested`` with a camera
-and no saved calibration, which opens the interactive calibration tool in
-the JAX package. The reference's visual-rank scan quirk is not carried.
+The UI: every frame ``_update_radar_ui`` sets the lifted piece and its
+legal destinations (``lifted_piece_square``, ``current_radar_destinations``)
+under ``board_lock``; with ``headless=False`` ``_draw_interface`` shows the
+warped board with the overlay of session/renderer.py ("Board") and the
+camera frame ("Camera") in cv2's windows. ``headless`` defaults to True
+here, where the JAX package's GameSession defaults to False: the card's
+machine has no display and no cv2. ``on_calibration_requested`` with a
+camera and no saved calibration opens the interactive calibration tool
+(tools/calibration_module.py) on ``gui``, cv2's HighGUI by default.
+``compat_visual_rank_quirk`` keeps the reference's smart-scan quirk.
 """
 
 from __future__ import annotations
@@ -71,6 +76,8 @@ from chessboard_vision_tpu_torch.models.pipeline import (
 from chessboard_vision_tpu_torch.session.drift import DriftMonitor
 from chessboard_vision_tpu_torch.session.inference import infer_move_from_diff
 from chessboard_vision_tpu_torch.session.noise import NoiseHandler, NoiseState
+from chessboard_vision_tpu_torch.session.renderer import draw_board_overlay
+from chessboard_vision_tpu_torch.tools.calibration_module import CalibrationModule
 
 
 class GameSession:
@@ -78,16 +85,17 @@ class GameSession:
     MOVE_COOLDOWN = 2.0  # seconds after a committed move
     FULL_SCAN_PERIOD = 30  # full 64-square scan every Nth frame
 
-    def __init__(self, device="cuda", hough_backend: str = "auto", headless: bool = True):
+    def __init__(self, device="cuda", hough_backend: str = "auto", headless: bool = True,
+                 compat_visual_rank_quirk: bool = False):
         """``hough_backend`` goes to the VisionPipeline: "auto" is exact on a
-        CPU device and conv on the card. ``headless=False`` (the renderer)
-        is not ported yet and raises."""
-        if not headless:
-            raise NotImplementedError(
-                "GameSession(headless=False): the renderer/UI overlay is not ported yet "
-                "(ROADMAP A15)")
+        CPU device and conv on the card. ``headless=False`` draws the board
+        overlay in cv2's windows every frame. ``compat_visual_rank_quirk``
+        adds legal-move destinations to the smart-scan set with the visual
+        rank (7 - rank), as the reference did (game_session.py:151-154)."""
         self.device = resolve_device(device, "GameSession")
         self.hough_backend = hough_backend
+        self.headless = headless
+        self.compat_visual_rank_quirk = compat_visual_rank_quirk
         self.board_lock = threading.RLock()
 
         self.config: Optional[dict] = None
@@ -115,6 +123,8 @@ class GameSession:
         # file's FPS.
         self.cooldown_frames: Optional[int] = None
         self.last_outputs = None  # the last step's StepOutputs, host numpy
+        self.lifted_piece_square = None  # (file, rank) of a lifted piece of the side to move
+        self.current_radar_destinations = []  # its legal destinations
         self._refresh_next = False
         # Piece types (rules/piece_types.py): radii and extents of frames
         # whose occupancy matches the rules board, reset when the expected
@@ -128,19 +138,17 @@ class GameSession:
 
     # -- calibration -----------------------------------------------------
 
-    def on_calibration_requested(self, cap=None, config: Optional[dict] = None) -> bool:
+    def on_calibration_requested(self, cap=None, config: Optional[dict] = None,
+                                 gui=None) -> bool:
         """Calibrate from a config dict, else from a saved calibration.json,
-        then capture the reference from ``cap`` (any reader with ``read()``)
-        when one is given. With a camera and no saved calibration the JAX
-        package opens the interactive calibration tool, which is not ported
-        yet: that raises (ROADMAP A15)."""
+        else, given a camera, from the interactive calibration tool on
+        ``gui`` (cv2's HighGUI when None; tools/calibration_module.py); then
+        capture the reference from ``cap`` (any reader with ``read()``)
+        when one is given."""
         if config is None:
             config = load_json_config(CALIBRATION_FILE)
         if config is None and cap is not None:
-            raise NotImplementedError(
-                "GameSession.on_calibration_requested: the interactive calibration tool "
-                "(tools/calibration_module.py) is not ported yet (ROADMAP A15); pass a "
-                "config or save calibration.json")
+            config = CalibrationModule(gui=gui, device=self.device).run(cap)
         if config is None:
             return False
         self.configure(config)
@@ -221,7 +229,7 @@ class GameSession:
             for move in self.game.board.legal_moves:
                 f = chess.square_file(move.to_square)
                 r = chess.square_rank(move.to_square)
-                squares.add((f, r))
+                squares.add((f, 7 - r) if self.compat_visual_rank_quirk else (f, r))
         return squares
 
     def on_frame(self, img: np.ndarray):
@@ -243,6 +251,7 @@ class GameSession:
         visual_changes = occupancy_to_set(out.visual_changes)
 
         noise_state, _ = self.noise.process(visual_changes)
+        self._update_radar_ui(vision_occupied)
         self._track_radii(vision_occupied, out)
         move = self._process_stable_move(vision_occupied, noise_state)
 
@@ -254,6 +263,8 @@ class GameSession:
             new_corners = self.drift.check(img)
             if new_corners is not None:
                 self._recalibrate(new_corners, img)
+        if not self.headless:
+            self._draw_interface(img, noise_state)
         return move
 
     # -- stability + inference -------------------------------------------
@@ -409,6 +420,51 @@ class GameSession:
             return None, None, want
         got = got.split()[0]
         return got == want, got, want
+
+    # -- UI ---------------------------------------------------------------
+
+    def _update_radar_ui(self, vision_occupied):
+        """The lifted piece and its legal destinations: set when exactly one
+        square of the rules board is empty in vision and holds a piece of
+        the side to move. Under board_lock: legal-move generation makes and
+        unmakes moves on the board the Lichess stream thread also syncs."""
+        with self.board_lock:
+            lifted = self.game.get_board_occupancy() - vision_occupied
+            self.lifted_piece_square = None
+            self.current_radar_destinations = []
+            if len(lifted) == 1:
+                pos = next(iter(lifted))
+                sq = chess.square(pos[0], pos[1])
+                piece = self.game.board.piece_at(sq)
+                if piece and piece.color == self.game.board.turn:
+                    self.lifted_piece_square = pos
+                    for move in self.game.board.legal_moves:
+                        if move.from_square == sq:
+                            self.current_radar_destinations.append(
+                                (chess.square_file(move.to_square),
+                                 chess.square_rank(move.to_square)))
+
+    def _draw_interface(self, img_raw, noise_state):
+        """Show the warped board with the session's overlay ("Board") and
+        the camera frame ("Camera") in cv2's windows."""
+        import cv2
+
+        geometry = self.pipeline.geometry
+        vis = draw_board_overlay(
+            self.pipeline.warp_board(img_raw),
+            board_size=geometry.board_size,
+            grid_x=geometry.grid_x,
+            grid_y=geometry.grid_y,
+            game=self.game,
+            board_lock=self.board_lock,
+            noise_active=noise_state == NoiseState.NOISE_ACTIVE,
+            lifted=self.lifted_piece_square,
+            radar=self.current_radar_destinations,
+            fps=self.fps.fps,
+            clock_text=self.clock_hud(),
+        )
+        cv2.imshow("Board", vis)
+        cv2.imshow("Camera", img_raw)
 
     # -- checkpoint / resume ---------------------------------------------
 

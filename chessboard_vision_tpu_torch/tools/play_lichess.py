@@ -13,8 +13,9 @@ a session checkpoint.
 The frame loop, ``run``, takes any capture-like reader (``read()``,
 ``release()``) and any key source (``wait_key(ms) -> int``, cv2.waitKey's
 contract): ``main`` passes the camera and HighGUI of cv2, which it alone
-imports; tests and chip_smoke.py drive the loop from frames in memory with
-a fake client.
+imports, and builds the session with ``headless=False``, so the board
+overlay shows in the "Board" window as in the JAX play_lichess; tests and
+chip_smoke.py drive the loop from frames in memory with a fake client.
 
 Run: python -m chessboard_vision_tpu_torch.tools.play_lichess [--auto-recalibrate]
 """
@@ -166,13 +167,13 @@ def main(argv=None):
         print("failed to open camera")
         return 1
 
-    session = LichessSession(device=args.device)
+    session = LichessSession(device=args.device, headless=False)
     if args.auto_recalibrate:
         session.default_config_overrides = {"auto_recalibrate": True}
     if args.resume:
         session.resume_checkpoint(args.resume)
         print(f"resumed from {args.resume}: {session.game.get_fen()}")
-    elif not session.on_calibration_requested(cap):
+    elif not session.on_calibration_requested(cap, gui=cv2):
         print("calibration cancelled")
         cap.release()
         return 1

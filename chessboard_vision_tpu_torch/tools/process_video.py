@@ -18,6 +18,12 @@ matches the reference's SKIP_FRAMES=2 cadence by default.
 in memory, which is how footage reaches the card, where there is no cv2.
 ``run`` opens a video file and calls ``run_capture``: decoding a file
 needs a codec, so ``open_video`` imports cv2, in that function alone.
+
+``--compare-oracle`` (``compare_oracle=True``) replays the same processed
+frames through the cv2 oracle's decision loop (reference/replay_session.py)
+beside the session and reports their agreement: per-frame occupancy, the
+move lists, the final FEN. The oracle is cv2, so the comparison runs where
+cv2 is; without it the run raises an ImportError that names cv2.
 """
 
 from __future__ import annotations
@@ -30,6 +36,11 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from chessboard_vision_tpu_torch.models.pipeline import occupancy_to_set
+from chessboard_vision_tpu_torch.reference.replay_session import (
+    OracleReplaySession,
+    agreement_report,
+)
 from chessboard_vision_tpu_torch.session.game_session import GameSession
 from chessboard_vision_tpu_torch.utils.config import load_json_config
 from chessboard_vision_tpu_torch.utils.logging import get_logger
@@ -93,9 +104,11 @@ def run_capture(
     session: Optional[GameSession] = None,
     cooldown_seconds: float = 0.0,
     device="cuda",
+    compare_oracle: bool = False,
 ):
     """Play a capture through a GameSession; returns (moves, final_fen,
-    frames_processed). The capture is released at the end.
+    frames_processed), or (moves, final_fen, frames_processed, report) with
+    ``compare_oracle``. The capture is released at the end.
 
     The reference is taken from frame ``reference_frames`` (recorded
     footage is stable from frame 0); then every ``skip_frames``-th frame
@@ -104,7 +117,15 @@ def run_capture(
     capture's FPS and skip_frames (wall-clock cooldowns are meaningless
     offline, where processing can run far faster than real time); 0 turns
     the cooldown off and the stability gate alone debounces. Both apply
-    to the session built here on ``device`` when none is given."""
+    to the session built here on ``device`` when none is given.
+
+    ``compare_oracle`` replays the same frames through the cv2 oracle's
+    decision loop (OracleReplaySession, the same gates and cooldown) and
+    returns its agreement report (``agreement_report``: per-frame occupancy
+    agreement, move-list diff, FEN match), also written to the timeline as
+    a last {"oracle_comparison": report} record. Its keys are the JAX
+    tool's (``tpu_moves``, ``tpu_final_fen``, ...): they are the file
+    format."""
     try:
         cooldown_frames = None
         if cooldown_seconds > 0:
@@ -118,6 +139,9 @@ def run_capture(
                 session.MOVE_COOLDOWN = 0.0
         if not session.on_calibration_requested(config=config):
             raise ValueError("calibration config rejected (missing corners?)")
+        oracle, per_frame_matches = None, []
+        if compare_oracle:
+            oracle = OracleReplaySession(config, cooldown_frames=cooldown_frames)
 
         ref = None
         for _ in range(max(reference_frames, 1)):
@@ -126,6 +150,8 @@ def run_capture(
                 raise ValueError("video ended before a reference frame was read")
             ref = img
         session.capture_reference_frame(ref)
+        if oracle is not None:
+            oracle.capture_reference(ref)
 
         moves = []
         i = processed = 0
@@ -139,6 +165,12 @@ def run_capture(
                     continue
                 processed += 1
                 move = session.on_frame(img)
+                if oracle is not None:
+                    omove = oracle.on_frame(img)
+                    if omove is not None:
+                        log.info("frame %d: oracle committed %s", i, omove.uci())
+                    occ = occupancy_to_set(session.last_outputs.occupancy)
+                    per_frame_matches.append(64 - len(occ ^ oracle.last_occupancy))
                 if move is not None:
                     moves.append(move.uci())
                     fen = session.game.get_fen()
@@ -150,6 +182,10 @@ def run_capture(
             final_fen = session.game.get_fen()
             out_f.write(json.dumps({"final_fen": final_fen, "moves": moves,
                                     "frames": processed}) + "\n")
+            if oracle is not None:
+                report = agreement_report(moves, final_fen, oracle, per_frame_matches)
+                out_f.write(json.dumps({"oracle_comparison": report}) + "\n")
+                return moves, final_fen, processed, report
         return moves, final_fen, processed
     finally:
         cap.release()
@@ -167,17 +203,14 @@ def run(
     compare_oracle: bool = False,
     device="cuda",
 ):
-    """Process the video file; returns (moves, final_fen, frames_processed)
-    (run_capture on the decoded file). ``compare_oracle`` (the cv2 oracle
-    replay of the JAX package) is not ported yet and raises."""
-    if compare_oracle:
-        raise NotImplementedError(
-            "process_video compare_oracle: the cv2 oracle replay is not ported yet "
-            "(ROADMAP A15, --compare-oracle)")
+    """Process the video file: run_capture on the decoded file; returns
+    (moves, final_fen, frames_processed), with the oracle's agreement report
+    as a fourth item when ``compare_oracle``."""
     return run_capture(
         open_video(video_path), config, skip_frames=skip_frames,
         reference_frames=reference_frames, out_path=out_path, max_frames=max_frames,
         session=session, cooldown_seconds=cooldown_seconds, device=device,
+        compare_oracle=compare_oracle,
     )
 
 
@@ -204,7 +237,9 @@ def main(argv=None):
                     help="detect mid-footage camera bumps and rebuild geometry "
                     "(session/drift.py)")
     ap.add_argument("--compare-oracle", action="store_true",
-                    help="not ported yet (ROADMAP A15, --compare-oracle): raises")
+                    help="also replay the video through the cv2 oracle decision loop and "
+                    "print a decision-agreement report (per-frame occupancy agreement, "
+                    "move-list diff, FEN match); needs cv2")
     args = ap.parse_args(argv)
 
     if args.corners:
@@ -223,13 +258,28 @@ def main(argv=None):
 
     if args.auto_recalibrate:
         config = {**config, "auto_recalibrate": True}
-    moves, fen, n = run(
+    result = run(
         args.video, config, skip_frames=args.skip_frames, out_path=args.out,
         max_frames=args.max_frames, cooldown_seconds=args.cooldown_seconds,
         compare_oracle=args.compare_oracle, device=args.device,
     )
+    moves, fen, n = result[:3]
     print(f"\n{len(moves)} moves over {n} processed frames")
     print(f"final FEN: {fen}")
+    if args.compare_oracle:
+        report = result[3]
+        print("\noracle comparison (cv2 decision loop on the same frames):")
+        print(f"  per-square occupancy agreement: {report['square_agreement_pct']}%")
+        print(f"  frames fully agreeing:          {report['frame_full_agreement_pct']}%")
+        print(f"  move lists match: {report['move_lists_match']} "
+              f"(tpu {len(report['tpu_moves'])} vs oracle {len(report['oracle_moves'])} moves"
+              + (f"; first divergence at move index {report['first_divergent_move']}"
+                 if report["first_divergent_move"] is not None else "")
+              + ")")
+        print(f"  final FEN match: {report['fen_match']}")
+        if not report["fen_match"]:
+            print(f"    tpu:    {report['tpu_final_fen']}")
+            print(f"    oracle: {report['oracle_final_fen']}")
     if args.pgn:
         from chessboard_vision_tpu_torch.rules.pgn import game_to_pgn
 

@@ -17,7 +17,9 @@ the last line:
    the profiler drops do not lower, or, where the profiler saw fewer than
    half of them, the median between CUDA events with the stream held
    behind a sleep kernel; the kernel's CUDA-event time per call beside
-   it), with the least time the
+   it; every profiled window is padded with sleep kernels on both sides,
+   and a line says where it still saw fewer records than launches), with
+   the least time the
    card could take (bound) and, where one exists, one PyTorch call that
    computes the same function:
    - B1 score matmul: the real (7168, 3200) Hough basis with the pooled
@@ -142,6 +144,38 @@ the last line:
      bumped, one rebuild in per-stream-geometry mode, then every rig
      commits e2e4; the drift check of all rigs and the rebuild timed.
 
+10. ui path (tools/calibrate_piece_detector.py, calibrate_sensitivity.py,
+   calibrate_colors.py, enhance_demo.py, calibration_module.py, the
+   session's radar) at 1280x720, the tools' capture, on
+   tests/fixtures.DEFAULT_CORNERS, through a stand-in for cv2's HighGUI
+   (scripted trackbars, keys and clicks; drawing calls recorded, not
+   painted; the calibrator's warpPerspective and rotate by the port's warp
+   on the card), in a temporary working directory:
+   - calibrate_piece_detector.run: the default settings, the radius
+     extremes (5% / 80%), then new param1/param2/center_diff, each held 16
+     frames: one rebuild a distinct setting, the squares circled at the
+     default settings equal the truth, B1 at each rebuilt plan's shape
+     within tolerance of its plain version with the argmax equal (the
+     kernel it took printed: K = 1250 at 720p takes the staged WMMA one),
+     and at each distinct plan shape its device time beside the plain
+     version's, torch.mm's and the bound;
+   - calibrate_sensitivity.run: blur 9 rebuilds the geometry with
+     blur_pad 4, then the e2 pawn lifted: the preview marks (4, 1) and
+     circles (4, 2), (4, 3);
+   - calibrate_colors.run with a non-identity profile: the shown image is
+     ImageEnhancer.apply_color_profile of the frame;
+   - enhance_demo.run on 8 frames: B2, B3, B4 once a frame each, each
+     bit-equal to its plain version at 720x1280 and timed there as phase
+     3 times the whole 1080x1920 frame;
+   - CalibrationModule.run with four clicks, ENTER, 'g', 's': the config's
+     corners are the clicks; GameSession.on_calibration_requested(cap)
+     without a saved calibration reaches it and captures the reference on
+     the card;
+   - a GameSession on the card: e2 lifted is lifted_piece_square (4, 1)
+     with destinations (4, 2), (4, 3).
+   Each line gives ms a frame (host clock), ms a rebuild (plan build and
+   reference capture apart) and the launches.
+
 A step's or tick's device busy time and ops (exact, streams) are
 torch.profiler's records summed over a window padded with sleep kernels
 on both sides, printed with the records seen against the launches
@@ -154,9 +188,10 @@ after it: the plain path must launch B1 and none of B2-B4, the enhanced
 path all four, with exactly one B3 (histograms + LUTs) and one B4 launch
 per CLAHE call, the exact path none, the streams path all four, the
 footage path all four, the live path all four (B2-B4 on the enhanced
-streams); B1's 1080p launches must take the TMA kernel. On the exact,
-streams, footage and live paths the counts are set to 0 just before
-each call of the path's pipelines, sessions and entry points and read
+streams), the ui path all four; B1's 1080p launches must take the TMA
+kernel. On the exact, streams, footage, live and ui paths the counts are
+set to 0 just before each call of the path's pipelines, sessions, entry
+points and tools and read
 just after it, so the pipelines and plain versions they are compared with
 add nothing. The line before the last is the kernels' JSON record
 (its launches summed over the paths); the last line is
@@ -165,6 +200,7 @@ add nothing. The line before the last is the kernels' JSON record
 
 import collections
 import contextlib
+import functools
 import itertools
 import json
 import os
@@ -179,6 +215,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_leaves
 
 from chessboard_vision_tpu_torch.kernels import bilateral as kb
 from chessboard_vision_tpu_torch.kernels import build_all
@@ -189,7 +226,7 @@ from chessboard_vision_tpu_torch.models.enhancer import correct_lighting
 from chessboard_vision_tpu_torch.ops import enhance as tenh
 from chessboard_vision_tpu_torch.ops import warp as warp_ops
 from chessboard_vision_tpu_torch.ops.canny import canny
-from chessboard_vision_tpu_torch.ops.color import planar_bgr2lab
+from chessboard_vision_tpu_torch.ops.color import bgr2gray, planar_bgr2lab
 from chessboard_vision_tpu_torch.ops.hough_conv import edge_planes
 from chessboard_vision_tpu_torch.ops.layout import to_planar
 from chessboard_vision_tpu_torch.geometry import BoardGeometry
@@ -275,19 +312,41 @@ def device_ms(fn, iters, before=None):
     return busy
 
 
-def profiled(body, iters):
+def profiled(body, iters, pad=False):
     """torch.profiler over iters calls of body(), the card synchronized at
-    the end: (the device events' keys, the profile)."""
+    the end: (the device events' keys, the profile). With ``pad``,
+    PAD_LAUNCHES sleep kernels run before and after the calls inside the
+    window (the profiler loses records at a session's ends: Queue C 15);
+    leave their key (pad_keys()) out of what is read."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with warnings.catch_warnings():  # one profiling cycle: its notice does not apply
         warnings.simplefilter("ignore", UserWarning)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            if pad:
+                _pad()
             for _ in range(iters):
                 body()
+            if pad:
+                _pad()
             torch.cuda.synchronize()
     return {e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA}, prof
+
+
+def records_vs_launches(prof, iters, skip=frozenset()):
+    """(device records a call, launches a call) of a padded profile: the
+    device events not in ``skip`` or the pads' key, against the runtime's
+    launch and copy calls on the host less the pads'."""
+    from torch.autograd import DeviceType
+
+    events = prof.key_averages()
+    keys = pad_keys()
+    seen = sum(e.count for e in events if e.device_type == DeviceType.CUDA
+               and e.key not in skip and e.key not in keys)
+    launches = sum(e.count for e in events
+                   if e.device_type == DeviceType.CPU and e.key in LAUNCH_CALLS)
+    return seen / iters, (launches - (2 * PAD_LAUNCHES if keys else 0)) / iters
 
 
 def device_profile(fn, iters, before=None):
@@ -299,10 +358,16 @@ def device_profile(fn, iters, before=None):
         fn()
     torch.cuda.synchronize()
     skip = profiled(before, iters)[0] if before else set()
-    _, prof = profiled((lambda: (before(), fn())) if before else fn, iters)
-    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.key not in skip]
+    _, prof = profiled((lambda: (before(), fn())) if before else fn, iters, pad=True)
+    keys = pad_keys()
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+           and e.key not in skip and e.key not in keys]
     if not dev:
         return None, None
+    seen, expected = records_vs_launches(prof, iters, skip)
+    if not before and seen < expected:
+        phase("time", f"device_ms: {seen:.2f} device records a call seen of {expected:.2f} "
+              "launches: the busy time reads low")
     busy_us = sum(e.self_device_time_total for e in dev)
     return busy_us / 1e3 / iters, sum(e.count for e in dev) / iters
 
@@ -324,6 +389,12 @@ def _pad():
         torch.cuda._sleep(1)
 
 
+@functools.lru_cache(maxsize=1)
+def pad_keys():
+    """The profiler's key of the pads' sleep kernel, to leave it out."""
+    return frozenset(profiled(_pad, 1)[0])
+
+
 def step_busy(fn, iters):
     """Device busy ms and device ops per call of a step or tick under
     torch.profiler, and a note with the device records it saw against the
@@ -340,21 +411,11 @@ def step_busy(fn, iters):
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    pad_keys = profiled(_pad, 1)[0]  # the sleep kernel's key, to leave it out
-
-    def window():
-        _pad()
-        for _ in range(iters):
-            fn()
-        _pad()
-
-    _, prof = profiled(window, 1)
-    events = prof.key_averages()
-    dev = [e for e in events if e.device_type == DeviceType.CUDA and e.key not in pad_keys]
-    seen = sum(e.count for e in dev) / iters
-    launches = sum(e.count for e in events
-                   if e.device_type == DeviceType.CPU and e.key in LAUNCH_CALLS)
-    expected = (launches - (2 * PAD_LAUNCHES if pad_keys else 0)) / iters
+    _, prof = profiled(fn, iters, pad=True)
+    keys = pad_keys()
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+           and e.key not in keys]
+    seen, expected = records_vs_launches(prof, iters)
     records = f"{seen:.1f} device records a call seen of {expected:.1f} launches"
     if dev and seen >= expected:
         return sum(e.self_device_time_total for e in dev) / 1e3 / iters, seen, records
@@ -401,24 +462,31 @@ def held_ms(fn, iters):
 def launch_ms(fn, iters):
     """Device ms of one call of a wrapper that launches one kernel: the
     median duration of its records under torch.profiler over iters calls
-    (after a warmup), and the records seen a call. Late in a long run the
-    profiler drops records (0.70 of 10 B2 launches seen, and in one run all
-    of 100), which lower a busy time per call but not the median; where it
-    saw fewer than half of them, the median of held_ms instead."""
+    (after a warmup) in a window padded with sleep kernels, and the records
+    seen a call against the launches a call. Unpadded, late in a long run
+    the profiler dropped 0.03-0.40 of the records (and in one run all of
+    100, Queue C 15), which lower a busy time per call but not the median;
+    where it saw fewer than half of them, the median of held_ms instead."""
     from torch.autograd import DeviceType
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    _, prof = profiled(fn, iters)
-    us = [e.device_time_total for e in prof.events() if e.device_type == DeviceType.CUDA]
+    _, prof = profiled(fn, iters, pad=True)
+    keys = pad_keys()
+    us = [e.device_time_total for e in prof.events()
+          if e.device_type == DeviceType.CUDA and e.name not in keys]
+    seen, expected = records_vs_launches(prof, iters)
     check(len(us) <= iters, f"launch_ms: {len(us)} device records for {iters} calls of "
           "a one-kernel wrapper")
+    if seen < expected:
+        phase("time", f"launch_ms: {seen:.2f} device records a call seen of {expected:.2f} "
+              "launches")
     if 2 * len(us) < iters:
         phase("time", f"torch.profiler saw {len(us)} of {iters} launches; held-stream CUDA "
               "events instead")
-        return held_ms(fn, iters), len(us) / iters
-    return float(np.median(us)) / 1e3, len(us) / iters
+        return held_ms(fn, iters), seen, expected
+    return float(np.median(us)) / 1e3, seen, expected
 
 
 def kernel_vs_plain_ms(kernel, plain, iters):
@@ -991,13 +1059,15 @@ def b1_wide_phase(basis, kvalid, planes, smi):
         library = library_mm(basis, pf)
         kernel_ms, library_ms, event_ms = kernel_vs_plain_ms(
             lambda: sm.score_matmul(basis, pf), library[1], 100)
+        plain_ms = device_ms(lambda: sm.score_matmul_reference(basis, pf), 100)
         bound_ms, bound_by = bound(2 * M * K + 2 * n * 64 * K + 4 * M * n * 64,
                                    2 * M * n * 64 * K, BF16_FLOPS)
         phase("streams", f"score_matmul N={n * 64} ({n} streams): ({M}, {K}) x ({n * 64}, {K}) "
               f"on the tma kernel, each stream's columns bit-equal to its N=64 launch, "
               f"max_abs_err {err!r}, argmax equal on all {n * 64} squares; device "
-              f"{kernel_ms * 1e3:.1f} us/call (CUDA events {event_ms * 1e3:.1f} us), "
-              f"{library[0]} {library_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.1f} us "
+              f"{kernel_ms * 1e3:.1f} us/call (CUDA events {event_ms * 1e3:.1f} us), plain "
+              f"(cuBLAS f32) {plain_ms * 1e3:.1f} us, {library[0]} {library_ms * 1e3:.1f} us, "
+              f"bound {bound_ms * 1e3:.1f} us "
               f"({bound_by}), {bound_ms / kernel_ms:.0%} of its bound; on {smi}")
     return max_err
 
@@ -1629,8 +1699,9 @@ def enhance_frame_phase(frame, launches, smi):
               f"{call:.3f} ms a call (median of 5, host clock, synchronized) on {smi}")
 
 
-def whole_frame_phase(frame, smi):
-    """B2-B4 at api.enhance_frame's 1080x1920 shape. B2 on the rendered frame
+def whole_frame_phase(frame, smi, label="api.enhance_frame's shape", where="kernel"):
+    """B2-B4 on a whole camera frame (api.enhance_frame's 1080x1920 shape;
+    the ui phase gives enhance_demo's 720x1280 one). B2 on the rendered frame
     and on random u8 (the frame's flat background is a best case for its
     color-weight lookups), B3 and B4 on the frame's Lab-L; each line gives
     the profiler's records a call seen (launch_ms) and the median time of a
@@ -1665,12 +1736,13 @@ def whole_frame_phase(frame, smi):
     parts = []
     for name, kernel, plain, iters, b in rows:
         ms, plain_ms, _ = kernel_vs_plain_ms(kernel, plain, iters)
-        seen = launch_ms(kernel, iters)[1]
-        parts.append(f"{name} {ms * 1e3:.1f} ({seen:.2f} records a call seen; held-stream "
+        _, seen, expected = launch_ms(kernel, iters)
+        parts.append(f"{name} {ms * 1e3:.1f} ({seen:.2f} records a call seen of {expected:.2f} "
+                     f"launches, padded window; held-stream "
                      f"CUDA events {held_ms(kernel, iters) * 1e3:.1f}; plain "
                      f"{plain_ms * 1e3:.1f}, bound "
                      f"{b[0] * 1e3:.2f} {b[1]}, {b[0] / ms:.0%} of it)")
-    phase("kernel", f"whole {h}x{w} frame (api.enhance_frame's shape; tiles {th}x{tw}), device "
+    phase(where, f"whole {h}x{w} frame ({label}; tiles {th}x{tw}), device "
           "us/call vs plain and bound: " + "; ".join(parts) + f"; on {smi}")
 
 
@@ -2006,6 +2078,485 @@ def live_phase(smi):
     return counts
 
 
+# The ui phase: the tools of tools/ and the session's radar at the tools'
+# 1280x720 capture, through a stand-in for cv2's HighGUI (the card's
+# machine has no cv2).
+UI_HEIGHT, UI_WIDTH = play_lichess.HEIGHT, play_lichess.WIDTH
+UI_CORNERS = LIVE_CORNERS
+UI_STILL = 16  # frames each tuner setting is held: the rebuild fires on the 16th
+UI_RENDERS = 6  # distinct renders of a position, cycled
+UI_ENHANCE_FRAMES = 8
+UI_RADIUS_EXTREMES = {"Min radius %": 5, "Max radius %": 80}
+UI_PARAMS = {"Param1": 80, "Param2": 20, "Center diff": 30}
+UI_PROFILE_BARS = {"Hue shift": 100, "Sat x10": 14, "Contrast x10": 12, "Brightness": 110,
+                   "Radical": 1, "Target hue": 15, "Hue window": 30}
+UI_DEMO_PROFILE = {"contrast": 1.1, "brightness": 4, "sat_scale": 1.2}
+DARK_PIECE = (40, 36, 30)
+
+
+class StandInGui:
+    """cv2's HighGUI and drawing calls, stood in for: the tools call what
+    cv2 offers, this object answers. The frame clock is ``waitKey``, which
+    each tool calls once a shown frame: trackbar moves and clicks scripted
+    for frame n land before frame n's positions are read and after frame
+    n's image is shown (a click then shows on frame n + 1), and waitKey
+    returns frame n's key. Drawing calls are recorded with their frame, not
+    painted; imshow records the image. warpPerspective and rotate are the
+    port's own warp and a flip on the card, cvtColor's BGR -> gray is the
+    port's bgr2gray on the card, resize records its factors and returns the
+    image."""
+
+    FONT_HERSHEY_SIMPLEX, EVENT_LBUTTONDOWN, ROTATE_180 = 0, 1, 1  # cv2's values
+    COLOR_BGR2GRAY, COLOR_GRAY2BGR = 6, 8
+
+    def __init__(self, bars=None, keys=None, clicks=None):
+        self.bars, self.keys, self.clicks = bars or {}, keys or {}, clicks or {}
+        self.frames = 0  # waitKey calls so far: the current frame is frames + 1
+        self.positions, self.callbacks = {}, {}
+        self.calls, self.shown, self.ticks = [], [], []
+        self.destroyed = 0
+
+    def _record(self, name, *args):
+        self.calls.append((self.frames + 1, name, args))
+
+    def namedWindow(self, name, *args):
+        pass
+
+    def createTrackbar(self, name, window, value, vmax, callback):
+        self.positions[name] = value
+
+    def getTrackbarPos(self, name, window):
+        for frame in sorted(f for f in self.bars if f <= self.frames + 1):
+            self.positions.update(self.bars.pop(frame))
+        return self.positions[name]
+
+    def setMouseCallback(self, window, callback, *args):
+        self.callbacks[window] = callback
+
+    def imshow(self, window, img):
+        self.shown.append((self.frames + 1, window, np.array(img, copy=True)))
+
+    def waitKey(self, ms=0):
+        self.frames += 1
+        self.ticks.append(time.perf_counter())
+        for x, y in self.clicks.get(self.frames, ()):
+            for callback in self.callbacks.values():
+                callback(self.EVENT_LBUTTONDOWN, x, y, 0, None)
+        return self.keys.get(self.frames, -1)
+
+    def destroyAllWindows(self):
+        self.destroyed += 1
+
+    def circle(self, img, center, radius, color, thickness=1, *args):
+        self._record("circle", tuple(map(int, center)), int(radius), tuple(color))
+
+    def line(self, img, p1, p2, color, thickness=1, *args):
+        self._record("line", p1, p2, tuple(color))
+
+    def rectangle(self, img, p1, p2, color, thickness=1, *args):
+        self._record("rectangle", p1, p2, tuple(color), thickness)
+
+    def putText(self, img, text, org, font, scale, color, thickness=1, *args):
+        self._record("putText", text, org)
+
+    def polylines(self, img, pts, closed, color, thickness=1, *args):
+        self._record("polylines", [p.reshape(-1, 2).tolist() for p in pts])
+
+    def addWeighted(self, src1, alpha, src2, beta, gamma, dst=None):
+        self._record("addWeighted", alpha, beta)
+        return dst
+
+    def resize(self, img, dsize, fx=1.0, fy=1.0, *args):
+        self._record("resize", fx, fy)
+        return img
+
+    def cvtColor(self, img, code):
+        if code == self.COLOR_BGR2GRAY:
+            return bgr2gray(on_card(img)).cpu().numpy()
+        if code == self.COLOR_GRAY2BGR:
+            return np.repeat(img[..., None], 3, axis=-1)
+        raise ValueError(f"StandInGui.cvtColor: code {code}")
+
+    def warpPerspective(self, img, M, dsize):
+        w, h = dsize
+        X, Y = geometry.inverse_coord_maps(M, h, w)
+        return warp_ops.warp_bilinear(on_card(img), on_card(X), on_card(Y),
+                                      contract=False).cpu().numpy()
+
+    def rotate(self, img, code):
+        check(code == self.ROTATE_180, f"StandInGui.rotate: code {code}")
+        return torch.flip(on_card(img), (0, 1)).cpu().numpy()
+
+    def drawn(self, frame, name):
+        return [args for f, n, args in self.calls if f == frame and n == name]
+
+    def frame_ms(self, skip=()):
+        """ms between successive frames (the first frame has no interval),
+        leaving out the frames in ``skip``."""
+        return [(b - a) * 1e3 for i, (a, b) in enumerate(zip(self.ticks, self.ticks[1:]), 2)
+                if i not in skip]
+
+
+class TimedBuilds:
+    """A tool module's VisionPipeline, timed: each build (the plan on the
+    card) and the reference capture of each built pipeline, apart."""
+
+    def __init__(self, module):
+        self.module, self.cls, self.builds = module, module.VisionPipeline, []
+
+    def __enter__(self):
+        self.module.VisionPipeline = self.build
+        return self
+
+    def __exit__(self, *exc):
+        self.module.VisionPipeline = self.cls
+
+    def build(self, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe = self.cls(*args, **kw)
+        torch.cuda.synchronize()
+        record = {"pipe": pipe, "kw": kw, "build_ms": (time.perf_counter() - t0) * 1e3}
+        capture = pipe.capture_reference
+
+        def timed_capture(state, frame):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state = capture(state, frame)
+            torch.cuda.synchronize()
+            record.setdefault("capture_ms", (time.perf_counter() - t) * 1e3)
+            return state
+
+        pipe.capture_reference = timed_capture
+        self.builds.append(record)
+        return pipe
+
+    def text(self):
+        return ", ".join(f"{b['build_ms']:.3f} + {b['capture_ms']:.3f}" for b in self.builds)
+
+
+class UiCamera:
+    """A capture over rendered frames (read, release)."""
+
+    def __init__(self, frames):
+        self._frames, self._next = frames, 0
+
+    def read(self):
+        if self._next >= len(self._frames):
+            return False, None
+        self._next += 1
+        return True, self._frames[self._next - 1].copy()
+
+    def release(self):
+        pass
+
+
+def ui_renders(camera, occ, seed, n=UI_RENDERS, **kw):
+    return [camera.render(occ, np.random.default_rng((seed, i)), **kw) for i in range(n)]
+
+
+def b1_at_plan(pipe, frame, label, timed=True):
+    """B1 on the inputs one step of ``pipe`` hands it (captured on the way
+    in), against its plain version: within tolerance, the masked first-max
+    argmax equal; the kernel it took and the shape; with ``timed``, its
+    device time beside the plain version's, the library call's and the
+    bound. Launches made here are the comparison's, outside any counted
+    window."""
+    from chessboard_vision_tpu_torch.ops import hough_conv
+
+    seen = []
+    real = hough_conv.score_matmul
+    hough_conv.score_matmul = lambda a, b: seen.append((a, b)) or real(a, b)
+    try:
+        pipe.step(pipe.init_state(), frame)
+    finally:
+        hough_conv.score_matmul = real
+    check(len(seen) == 1, f"{label}: {len(seen)} B1 calls in one step")
+    basis, planes = seen[0]
+    got = sm.score_matmul(basis, planes)
+    path, shape = sm.score_matmul.last_path, sm.score_matmul.last_shape
+    want = sm.score_matmul_reference(basis, planes)
+    torch.testing.assert_close(got, want, rtol=SCORE_RTOL, atol=SCORE_ATOL)
+    kvalid = pipe.consts.conv_plan.kvalid
+    gi = torch.argmax(torch.where(kvalid, got, -torch.inf), dim=0)
+    wi = torch.argmax(torch.where(kvalid, want, -torch.inf), dim=0)
+    flips = (gi != wi).nonzero().flatten().tolist()
+    check(not flips, f"{label}: B1 argmax differs from plain on squares {flips}")
+    err = (got - want).abs().max().item()
+    line = f"B1 (M, N, K) {shape} on the {path} kernel, max_abs_err {err!r}, argmax equal"
+    if not timed:
+        return err, line
+    kernel_ms, plain_ms, _ = kernel_vs_plain_ms(lambda: sm.score_matmul(basis, planes),
+                                                lambda: sm.score_matmul_reference(basis, planes),
+                                                100)
+    library = library_mm(basis, planes)
+    library_ms = device_ms(library[1], 100)
+    (M, K), N = basis.shape, planes.shape[0]
+    bound_ms, bound_by = bound(2 * M * K + 2 * N * K + 4 * M * N, 2 * M * N * K, BF16_FLOPS)
+    return err, (f"{line}, device {kernel_ms * 1e3:.1f} us/call, plain (cuBLAS f32) "
+                 f"{plain_ms * 1e3:.1f} us, {library[0]} {library_ms * 1e3:.1f} us, bound "
+                 f"{bound_ms * 1e3:.2f} us ({bound_by})")
+
+
+def _squares_of_circles(circles, sq):
+    return {(cx // sq, 7 - cy // sq) for (cx, cy), _, _ in circles}
+
+
+def ui_piece_detector(camera, config, truth, launches, smi):
+    """calibrate_piece_detector.run: default settings, then the radius
+    extremes, then new param1/param2/center_diff, each held UI_STILL frames:
+    one rebuild a distinct setting; at the default settings the squares
+    circled are the truth; B1 at each rebuilt plan."""
+    from chessboard_vision_tpu_torch.tools import calibrate_piece_detector as cpd
+
+    n = 3 * UI_STILL
+    frames = [camera[i % len(camera)] for i in range(n)]
+    gui = StandInGui(bars={UI_STILL + 1: UI_RADIUS_EXTREMES, 2 * UI_STILL + 1: UI_PARAMS},
+                     keys={n: ord("q")})
+    with counted(launches) as got, TimedBuilds(cpd) as timed:
+        shown = cpd.run(UiCamera(frames), gui, config, device=DEVICE)
+    check(shown == n and gui.destroyed == 1, f"ui piece detector: {shown} frames shown")
+    rebuilt = [1, 2 * UI_STILL, 3 * UI_STILL]
+    settings = [b["kw"]["piece_settings"] for b in timed.builds]
+    check(len(timed.builds) == 3 and len({json.dumps(s, sort_keys=True) for s in settings}) == 3,
+          f"ui piece detector: {len(timed.builds)} rebuilds for 3 distinct settings: {settings}")
+    check(settings[1]["min_radius"] == 5 and settings[1]["max_radius"] == 80
+          and settings[2]["param1"] == 80, f"ui piece detector: settings {settings}")
+    board = timed.builds[0]["pipe"].geometry.board_size
+    drawn = _squares_of_circles(gui.drawn(UI_STILL, "circle"), board // 8)
+    check(drawn == truth, f"ui piece detector: squares circled at the default settings "
+          f"{sorted(drawn ^ truth)} differ from the truth")
+    check(got["score_matmul"] == n and not any(got[k] for k in COUNTERS if k != "score_matmul"),
+          f"ui piece detector: launches {got} for {n} frames")
+    errs, lines, shapes = [], [], set()
+    for b, (frame, s) in zip(timed.builds, zip(rebuilt, settings)):
+        shape = tuple(b["pipe"].consts.conv_plan.basis.shape)
+        err, line = b1_at_plan(b["pipe"], frames[frame - 1],
+                               f"ui piece detector plan {s['min_radius']}-{s['max_radius']}%",
+                               timed=shape not in shapes)  # each plan shape timed once
+        shapes.add(shape)
+        errs.append(err)
+        lines.append(f"{s['min_radius']}-{s['max_radius']}%: {line}")
+    per = gui.frame_ms(skip=rebuilt)
+    phase("ui", f"calibrate_piece_detector.run at {UI_WIDTH}x{UI_HEIGHT}: {n} frames, "
+          f"{len(timed.builds)} rebuilds on frames {rebuilt}, the {len(drawn)} squares circled "
+          f"at the default settings equal the truth; ms a frame p50 {_pct(per, 50):.3f} / p95 "
+          f"{_pct(per, 95):.3f} (host clock, the tool's reads back); ms a rebuild (plan build + "
+          f"reference capture) {timed.text()}; launches {got}; " + "; ".join(lines)
+          + f"; on {smi}")
+    return max(errs)
+
+
+def ui_sensitivity(renders, config, launches, smi):
+    """calibrate_sensitivity.run: blur 9 rebuilds the geometry with blur_pad
+    4, then the e2 pawn lifted: the preview marks e2 and circles e3, e4."""
+    from chessboard_vision_tpu_torch.tools import calibrate_sensitivity as cs
+
+    start, lifted = renders
+    n_start, n_lifted = UI_STILL + 1, 4
+    frames = [start[i % len(start)] for i in range(n_start)]
+    frames += [lifted[i % len(lifted)] for i in range(n_lifted)]
+    n = len(frames)
+    gui = StandInGui(bars={2: {"Blur": 9, "Sensitivity": 20}}, keys={n: ord("q")})
+    with counted(launches) as got, TimedBuilds(cs) as timed:
+        shown = cs.run(UiCamera(frames), gui, config, device=DEVICE)
+    pads = [b["pipe"].geometry.squares.pad for b in timed.builds]
+    check(shown == n and pads == [2, 4],
+          f"ui sensitivity: {shown} frames, rebuilds with blur_pad {pads} (want [2, 4])")
+    check([b["kw"]["change_settings"]["blur_kernel"] for b in timed.builds] == [5, 9],
+          "ui sensitivity: blur kernels of the rebuilds")
+    sq = timed.builds[-1]["pipe"].geometry.board_size // 8
+    marked = [(x // sq, 7 - y // sq) for (x, y), _, color, t in gui.drawn(n, "rectangle")
+              if color == (0, 255, 255) and t == 2]
+    dests = _squares_of_circles(gui.drawn(n, "circle"), sq)
+    check(marked == [(4, 1)] and dests == {(4, 2), (4, 3)},
+          f"ui sensitivity: the lifted preview marks {marked} with destinations {sorted(dests)}")
+    check(got["score_matmul"] == n and not any(got[k] for k in COUNTERS if k != "score_matmul"),
+          f"ui sensitivity: launches {got} for {n} frames")
+    err, line = b1_at_plan(timed.builds[-1]["pipe"], frames[-1], "ui sensitivity",
+                           timed=False)  # the default plan's shape, timed above
+    per = gui.frame_ms(skip=(1, UI_STILL + 1))
+    phase("ui", f"calibrate_sensitivity.run: {n} frames, the blur-9 rebuild with blur_pad 4 on "
+          f"frame {UI_STILL + 1}, e2 lifted: marked {marked[0]}, destinations {sorted(dests)}; "
+          f"ms a frame p50 {_pct(per, 50):.3f} / p95 {_pct(per, 95):.3f}; ms a rebuild (plan "
+          f"build + reference capture) {timed.text()}; launches {got}; {line}; on {smi}")
+    return err
+
+
+def ui_colors(frame, launches, smi):
+    """calibrate_colors.run with one non-identity profile: the middle of the
+    shown triptych is ImageEnhancer.apply_color_profile of the frame."""
+    from chessboard_vision_tpu_torch.models.enhancer import ImageEnhancer
+    from chessboard_vision_tpu_torch.tools import calibrate_colors as cc
+
+    gui = StandInGui(bars={1: UI_PROFILE_BARS}, keys={2: ord("q")})
+    with counted(launches) as got:
+        shown = cc.run(UiCamera([frame, frame]), gui, device=DEVICE)
+    profile = cc.profile_from_trackbars(
+        [UI_PROFILE_BARS.get(name, default) for name, _m, _c, default in cc.TRACKBARS])
+    want = ImageEnhancer(profile=profile, device=DEVICE).apply_color_profile(frame)
+    _, window, img = gui.shown[-1]
+    w = frame.shape[1]
+    check(shown == 2 and img.shape == (frame.shape[0], 3 * w, 3)
+          and np.array_equal(img[:, :w], frame) and np.array_equal(img[:, w:2 * w], want),
+          "ui colors: the shown triptych is not (frame, apply_color_profile(frame), gray)")
+    check(not np.array_equal(want, frame), "ui colors: the profile changed nothing")
+    check(not any(got.values()), f"ui colors: launches {got}")
+    per = gui.frame_ms()
+    phase("ui", f"calibrate_colors.run: profile {profile}; the shown triptych's middle equals "
+          f"ImageEnhancer.apply_color_profile of the frame; ms a frame {per[0]:.3f}; launches "
+          f"{got}; on {smi}")
+
+
+def ui_enhance_demo(frames, launches, smi):
+    """enhance_demo.run on whole 1280x720 frames with color_profile.json:
+    B2, B3 and B4 once a frame each, and each bit-equal to its plain version
+    at 720x1280 on the enhancer's own inputs."""
+    from chessboard_vision_tpu_torch.models.enhancer import apply_color_profile
+    from chessboard_vision_tpu_torch.tools import enhance_demo as ed
+
+    with open("color_profile.json", "w") as fh:
+        json.dump(UI_DEMO_PROFILE, fh)
+    n = len(frames)
+    gui = StandInGui(keys={n: ord("q")})
+    with counted(launches) as got:
+        shown = ed.run(UiCamera(frames), gui, device=DEVICE)
+    want = {"score_matmul": 0, "bilateral": n, "clahe_hist": 0, "clahe_hist_luts": n,
+            "clahe_apply": n}
+    check(shown == n and got == want, f"ui enhance demo: launches {got}, want {want}")
+    check([w for _, w, _ in gui.shown[:3]] == ["Original", "Enhanced", "Analysis (Otsu)"],
+          "ui enhance demo: windows")
+    tiles = 8
+    planar = apply_color_profile(on_card(to_planar(frames[0])), UI_DEMO_PROFILE)
+    lab_l = planar_bgr2lab(planar)[0]
+    h, w = lab_l.shape
+    th, tw = -(-h // tiles), -(-w // tiles)
+    clip = max(int(3.0 * th * tw / 256), 1)
+    hist, lut = kc.clahe_hist_luts(lab_l, th, tw, tiles, clip)
+    want_hist, want_lut = kc.clahe_hist_luts_reference(lab_l, th, tw, tiles, clip)
+    check(torch.equal(hist, want_hist) and torch.equal(lut, want_lut),
+          "ui enhance demo: B3 differs from plain at 720x1280")
+    check(torch.equal(kc.clahe_apply(lab_l, lut, th, tw, tiles),
+                      kc.clahe_apply_reference(lab_l, want_lut, th, tw, tiles)),
+          "ui enhance demo: B4 differs from plain at 720x1280")
+    lit = correct_lighting(planar)
+    check(torch.equal(kb.bilateral_planar(lit), kb.bilateral_reference(lit)),
+          "ui enhance demo: B2 differs from plain at 720x1280")
+    whole_frame_phase(frames[0], smi, "enhance_demo's camera frame", "ui")
+    per = gui.frame_ms()
+    phase("ui", f"enhance_demo.run on {n} {w}x{h} frames: B2, B3 and B4 bit-equal to their "
+          f"plain versions at {h}x{w} (CLAHE tiles {th}x{tw}); ms a frame p50 "
+          f"{_pct(per, 50):.3f} / p95 {_pct(per, 95):.3f} (process_pipeline + prepare_analysis, "
+          f"both read back); launches {got}; on {smi}")
+
+
+def ui_calibrator(frames, launches, smi):
+    """CalibrationModule.run: four clicks, ENTER, 'g', 's': the config's
+    corners are the clicks, the smart grid is refined on the card. Then a
+    GameSession with no saved calibration reaches it from
+    on_calibration_requested(cap) and captures its reference on the card."""
+    from chessboard_vision_tpu_torch.tools.calibration_module import CalibrationModule
+
+    clicks = [tuple(int(v) for v in UI_CORNERS[i]) for i in (3, 0, 2, 1)]
+
+    def script():
+        return StandInGui(clicks={1: clicks}, keys={2: 13, 4: ord("g"), 6: ord("s")})
+
+    gui = script()
+    with counted(launches) as got:
+        t0 = time.perf_counter()
+        config = CalibrationModule(gui=gui, device=DEVICE).run(UiCamera(frames))
+        calib_s = time.perf_counter() - t0
+    check(config is not None and config["corners"] == [list(c) for c in clicks],
+          f"ui calibrator: config {config}")
+    check(len(config["grid_lines_x"]) == 9 and len(config["grid_lines_y"]) == 9,
+          f"ui calibrator: grid {config['grid_lines_x']} {config['grid_lines_y']}")
+    check([w for _, w, _ in gui.shown] == ["Calibration"] * 2 + ["Verification"] * 4
+          and gui.shown[-1][2].shape == (620, 620, 3), "ui calibrator: windows shown")
+    check(len(gui.drawn(2, "polylines")) == 1, "ui calibrator: the four corners' outline")
+    with open("calibration.json") as fh:
+        check(json.load(fh) == config, "ui calibrator: calibration.json differs from the config")
+    os.remove("calibration.json")
+    session = GameSession(device=DEVICE)
+    with counted(launches) as session_got:
+        ok = session.on_calibration_requested(UiCamera(frames + frames[:11]), gui=script())
+    check(ok and session.config == config, f"ui calibrator: session config {session.config}")
+    leaves = tree_leaves(session.pipe_state)
+    check(leaves and all(t.device.type == torch.device(DEVICE).type for t in leaves),
+          "ui calibrator: the reference is not on the card")
+    check(not any(got.values()), f"ui calibrator: launches {got}")
+    phase("ui", f"CalibrationModule.run: corners {config['corners']} (the clicks), smart grid x "
+          f"{config['grid_lines_x']} y {config['grid_lines_y']} (refine_grid on the card) in "
+          f"{calib_s * 1e3:.3f} ms for {len(gui.shown)} frames; on_calibration_requested(cap) "
+          f"with no saved calibration reached it and captured the reference on the card "
+          f"(launches {session_got}); on {smi}")
+
+
+def ui_radar(camera, config, launches, smi):
+    """The session's radar on the card: e2 lifted shows as the lifted square
+    with its two destinations."""
+    occ = initial_occupancy()
+    lifted = occ.copy()
+    lifted[4, 1] = False
+    frames = ui_renders(camera, occ, 60, 3) + ui_renders(camera, lifted, 61, 5)
+    session = GameSession(device=DEVICE)
+    with counted(launches) as got:
+        session.on_calibration_requested(config=config)
+        session.capture_reference_frame(frames[0])
+        radar, times = [], []
+        for fr in frames[1:]:
+            t0 = time.perf_counter()
+            session.on_frame(fr)
+            times.append((time.perf_counter() - t0) * 1e3)
+            radar.append((session.lifted_piece_square, sorted(session.current_radar_destinations)))
+    check(radar[0] == (None, []) and radar[-1] == ((4, 1), [(4, 2), (4, 3)]),
+          f"ui radar: {radar}")
+    check(got["score_matmul"] == len(frames) - 1, f"ui radar: launches {got}")
+    phase("ui", f"GameSession radar on the card: e2 lifted -> lifted_piece_square "
+          f"{radar[-1][0]}, destinations {radar[-1][1]} (frames {radar}); on_frame p50 "
+          f"{_pct(times, 50):.3f} ms (host clock); launches {got}; on {smi}")
+
+
+def ui_phase(smi):
+    """The UI tools and the session's radar at 1280x720 on the card, with
+    every count set to 0 just before each tool's run and read just after it,
+    in a temporary working directory (the tools read and write their JSON
+    files there). Returns (the path's counts, B1's max error)."""
+    t0 = time.perf_counter()
+    camera = SynthCamera(UI_CORNERS, frame_size=(UI_HEIGHT, UI_WIDTH))
+    occ = initial_occupancy()
+    lifted = occ.copy()
+    lifted[4, 1] = False
+    # The e2 pawn dark in the sensitivity tuner's frames: its change gate
+    # passes a light piece lifted off a light square unseen (Queue C 5).
+    colors = np.empty((8, 8), object)
+    colors[4, 1] = DARK_PIECE
+    start = ui_renders(camera, occ, 50)
+    dark = (ui_renders(camera, occ, 51, piece_colors=colors),
+            ui_renders(camera, lifted, 52, piece_colors=colors))
+    phase("ui", f"rendered {3 * UI_RENDERS} frames of {UI_WIDTH}x{UI_HEIGHT} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    config = {"corners": UI_CORNERS.tolist(), "player_color": "white",
+              "orientation_flipped": False, "grid_lines_x": None, "grid_lines_y": None}
+    launches = collections.Counter()
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            err = ui_piece_detector(start, config, _occ_set(occ), launches, smi)
+            err = max(err, ui_sensitivity(dark, config, launches, smi))
+            ui_colors(start[0], launches, smi)
+            ui_enhance_demo([start[i % UI_RENDERS] for i in range(UI_ENHANCE_FRAMES)], launches,
+                            smi)
+            ui_calibrator(start, launches, smi)
+            ui_radar(camera, config, launches, smi)
+        finally:
+            os.chdir(cwd)
+    counts = {name: launches[name] for name in COUNTERS}
+    phase("ui", f"kernel launches on this path: {counts}")
+    return counts, err
+
+
 def main():
     t_start = time.perf_counter()
 
@@ -2070,9 +2621,16 @@ def main():
     check(live["clahe_hist"] == 0, "the live path launched the histogram-only B3")
     elapsed("live path")
 
+    ui, ui_err = ui_phase(smi)
+    missing = [k for k in COUNTERS if k != "clahe_hist" and ui[k] == 0]
+    check(not missing, f"the ui path never launched {missing}")
+    check(ui["clahe_hist"] == 0, "the ui path launched the histogram-only B3")
+    records[0]["max_abs_err"] = max(records[0]["max_abs_err"], ui_err)
+    elapsed("ui path")
+
     for rec in records:
         w = PATH_WRAPPER.get(rec["name"], rec["name"])
-        rec["launches"] = plain[w] + enhanced[w] + streams[w] + footage[w] + live[w]
+        rec["launches"] = plain[w] + enhanced[w] + streams[w] + footage[w] + live[w] + ui[w]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: rec[k] for k in keys} for rec in records]}), flush=True)

@@ -12,13 +12,16 @@ own copy. The port's copies of the JAX package's host modules
 (``geometry``, ``rules``) give the same arrays, moves and FEN as the
 originals.
 
-The port's sources import neither jax nor the JAX package, and cv2 at two
-sites only, each inside a function: ``tools/process_video.open_video``,
-which decodes a video file and needs cv2's codecs, and
-``tools/play_lichess.main``, which opens the camera and HighGUI. So the
-pipeline, the sessions, ``run_capture`` and the live loop run without cv2,
-as the subprocess shows. ``requests`` is imported only inside the Lichess
-client's methods.
+The port's sources import neither jax nor the JAX package, and cv2 only
+inside functions, at the sites ``CV2_SITES`` lists: a video file's codec
+(``tools/process_video.open_video``), the camera and HighGUI of each
+tool's ``main``, the calibrator's default gui (``CalibrationModule.run``),
+the board renderer's drawing and the session's windows
+(``_draw_interface``), and the cv2 oracles of ``reference/`` (their
+``__init__`` and ``apply_color_profile_cv``). So the pipeline, the
+sessions, ``run_capture``, the live loop and every tool module import
+without cv2, as the subprocess shows. ``requests`` is imported only inside
+the Lichess client's methods.
 """
 
 import ast
@@ -58,7 +61,10 @@ for name in ("ops.fsm", "ops.hough", "ops.warp", "parallel", "parallel.multistre
              "parallel.session", "utils.checkpoint", "api", "tools.process_video",
              "rules.piece_types", "session.board_verifier", "models.change_detector",
              "utils.profiling", "contours", "session.drift", "net.lichess_client",
-             "session.lichess_session", "native", "tools.play_lichess"):
+             "session.lichess_session", "native", "tools.play_lichess", "session.renderer",
+             "tools.calibration_module", "tools.calibrate_piece_detector",
+             "tools.calibrate_sensitivity", "tools.calibrate_colors", "tools.enhance_demo",
+             "reference", "reference.replay_session"):
     assert port.__name__ + "." + name in names, name
 
 from chessboard_vision_tpu_torch import geometry as geo
@@ -164,23 +170,43 @@ def _import_sites(path, names):
     return sites
 
 
+# (file under the port, the function whose body imports cv2, its column):
+# every cv2 import of the port, none at module level.
+CV2_SITES = [
+    ("reference/change_detector.py", "__init__", 8),
+    ("reference/enhancer.py", "__init__", 8),
+    ("reference/enhancer.py", "apply_color_profile_cv", 4),
+    ("reference/piece_detector.py", "__init__", 8),
+    ("reference/replay_session.py", "__init__", 8),
+    ("session/game_session.py", "_draw_interface", 8),
+    ("session/renderer.py", "draw_board_overlay", 4),
+    ("session/renderer.py", "draw_chess_grid_dynamic", 4),
+    ("tools/calibrate_colors.py", "main", 4),
+    ("tools/calibrate_piece_detector.py", "main", 4),
+    ("tools/calibrate_sensitivity.py", "main", 4),
+    ("tools/calibration_module.py", "main", 4),
+    ("tools/calibration_module.py", "run", 12),
+    ("tools/enhance_demo.py", "main", 4),
+    ("tools/play_lichess.py", "main", 4),
+    ("tools/process_video.py", "open_video", 4),
+]
+
+
 def test_port_sources_never_import_jax_or_cv2():
-    """No jax anywhere; cv2 at exactly two sites, each inside the body of a
-    function, never at module level: tools/process_video.open_video (a
-    file's codec) and tools/play_lichess.main (the camera and HighGUI).
-    requests only inside functions of net/lichess_client.py."""
+    """No jax anywhere; cv2 exactly at CV2_SITES, each inside the body of a
+    function, never at module level (chip_smoke.py has none). requests
+    only inside functions of net/lichess_client.py."""
     files = list(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
-    allowed = {(PORT / "tools" / "process_video.py", "open_video"),
-               (PORT / "tools" / "play_lichess.py", "main")}
+    allowed = {(PORT / path, func) for path, func, _ in CV2_SITES}
     client = PORT / "net" / "lichess_client.py"
     sites = {p: _import_sites(p, {"jax", "jaxlib", "cv2", "requests"}) for p in files}
     offenders = [(str(p), s) for p, ss in sites.items() for s in ss
                  if not (s[0] == "cv2" and (p, s[1]) in allowed)
                  and not (s[0] == "requests" and p == client and s[1] is not None)]
     assert not offenders
-    cv2_sites = sorted((p.name, s) for p, ss in sites.items() for s in ss if s[0] == "cv2")
-    assert cv2_sites == [("play_lichess.py", ("cv2", "main", 4)),
-                         ("process_video.py", ("cv2", "open_video", 4))], cv2_sites
+    cv2_sites = sorted((p.relative_to(PORT).as_posix(), s[1], s[2])
+                       for p, ss in sites.items() for s in ss if s[0] == "cv2")
+    assert cv2_sites == CV2_SITES, cv2_sites
     assert len(sites[client]) >= 5  # the client's HTTP methods, each importing it
 
 

@@ -8,8 +8,9 @@ step), the session commits e2e4 and the client receives its POST; 'k'
 saves a checkpoint that resumes to the same position, 'c' re-captures the
 reference, 'q' stops the loop with frames left; the PGN is written and the
 stream thread ends. ``main`` runs with a stand-in for cv2's camera and
-HighGUI and a calibration.json, with --no-ring, --pgn, --checkpoint and
---auto-recalibrate.
+HighGUI (cv2's own drawing) and a calibration.json, with --no-ring, --pgn,
+--checkpoint and --auto-recalibrate; its session is not headless and shows
+the board overlay.
 """
 
 import json
@@ -18,6 +19,7 @@ import threading
 import time
 import types
 
+import cv2
 import numpy as np
 import pytest
 import torch
@@ -232,9 +234,13 @@ def test_main_runs_the_loop_with_a_camera_and_calibration_file(monkeypatch, tmp_
     frames, board = _frames()
     camera = FakeCamera(frames)
     closed = []
+    shown = []
+    drawing = {name: getattr(cv2, name) for name in (
+        "line", "putText", "rectangle", "circle", "addWeighted", "FONT_HERSHEY_SIMPLEX")}
     monkeypatch.setitem(sys.modules, "cv2", types.SimpleNamespace(
         VideoCapture=lambda index: camera, waitKey=lambda ms: -1,
-        imshow=lambda name, img: None, destroyAllWindows=lambda: closed.append(True)))
+        imshow=lambda name, img: shown.append((name, img.shape)),
+        destroyAllWindows=lambda: closed.append(True), **drawing))
     sessions = []
 
     def make(**kw):
@@ -247,6 +253,12 @@ def test_main_runs_the_loop_with_a_camera_and_calibration_file(monkeypatch, tmp_
                     "k.npz", "--device", "cpu"]) == 0
     (session,) = sessions
     assert camera.props == {3: pl.WIDTH, 4: pl.HEIGHT} and closed == [True]
+    # headless=False: every stepped frame shows the board overlay (the
+    # session's warped 620 px board) and the camera, as the JAX play_lichess does;
+    # polling inline, the loop shows the SKIP_FRAMES - 1 others' camera too.
+    boards = shown.count(("Board", (620, 620, 3)))
+    assert not session.headless and boards >= 4
+    assert shown.count(("Camera", (720, 1280, 3))) == pl.SKIP_FRAMES * boards
     assert session.drift is not None and session.config["auto_recalibrate"]
     assert session.lichess.sent == ["e2e4"] and session.game.get_fen() == board.fen()
     with open("game.pgn") as fh:

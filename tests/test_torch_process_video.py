@@ -14,6 +14,7 @@ pinned timeline through the port.
 import hashlib
 import json
 import os
+import sys
 
 import cv2
 import numpy as np
@@ -142,7 +143,7 @@ def test_run_capture_from_memory_equals_run_on_the_file(runs, clip, tmp_path):
 def test_main_writes_pgn_and_refuses_what_is_not_ported(clip, tmp_path, capsys, monkeypatch):
     """main --pgn on the CPU commits e2e4 within 24 processed frames and
     writes the PGN the JAX tool's main writes for it (the JAX rules' PGN
-    with the same headers); compare_oracle raises, naming its ROADMAP item.
+    with the same headers); compare_oracle without cv2 raises, naming cv2.
     --auto-recalibrate turns the session's drift checks on (the reference
     frame seeds the baseline) and digitizes the same game."""
     path, _, _ = clip
@@ -165,10 +166,12 @@ def test_main_writes_pgn_and_refuses_what_is_not_ported(clip, tmp_path, capsys, 
     with open(pgn) as fh, open(drift_pgn) as dfh:
         assert dfh.read() == fh.read()
     assert "1 moves over 24 processed frames" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
-        tpv.main([path, "--corners", corners, "--compare-oracle", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
-        tpv.run(path, dict(CONFIG), compare_oracle=True, device="cpu")
+    # compare_oracle is ported (tests/test_torch_oracle.py); its oracle is
+    # cv2, so where there is no cv2 it raises, naming cv2.
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    with pytest.raises(ImportError, match="cv2"):
+        tpv.run_capture(tpv.FrameReader(clip[1]), dict(CONFIG), compare_oracle=True,
+                        device="cpu")
 
 
 def _decoded_clip_hash(path):

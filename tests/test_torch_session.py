@@ -15,6 +15,7 @@ TPU kernels themselves.
 """
 
 import functools
+import types
 
 import numpy as np
 import pytest
@@ -106,17 +107,30 @@ def test_session_needs_the_card_unless_asked_for_the_cpu():
 
 
 def test_headless_false_and_auto_recalibrate_are_not_ported(monkeypatch, tmp_path):
-    """The renderer and the interactive calibration tool wait for ROADMAP
-    A15: asking for them raises, naming the item. Drift re-calibration is
-    ported: ``"auto_recalibrate"`` (here through default_config_overrides,
-    as play_lichess --auto-recalibrate sets it) gives the session a drift
-    monitor on its device with the config's gates, and the calibration
-    sets orientation_flipped as in the JAX package."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
-        TorchSession(device="cpu", headless=False)
+    """The UI and the interactive calibration tool are ported:
+    ``headless=False`` keeps the flag (the session draws its overlay each
+    frame, tests/test_torch_renderer.py), and with a camera and no saved
+    calibration ``on_calibration_requested`` opens the calibration tool on
+    the given gui; cancelled there ('q'), it returns False without a
+    config. Drift re-calibration: ``"auto_recalibrate"`` (here through
+    default_config_overrides, as play_lichess --auto-recalibrate sets it)
+    gives the session a drift monitor on its device with the config's
+    gates, and the calibration sets orientation_flipped as in the JAX
+    package."""
+    from chessboard_vision_tpu_torch.tools.process_video import FrameReader
+
+    shown = TorchSession(device="cpu", headless=False)
+    assert not shown.headless and TorchSession(device="cpu").headless
     monkeypatch.chdir(tmp_path)  # no calibration.json here
-    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
-        TorchSession(device="cpu").on_calibration_requested(cap=object())
+    windows = []
+    gui = types.SimpleNamespace(
+        namedWindow=windows.append, setMouseCallback=lambda window, callback: None,
+        imshow=lambda window, img: None, waitKey=lambda ms: ord("q"),
+        destroyAllWindows=lambda: windows.append("destroyed"))
+    frame = make_board_frame(occupancy_of(chess.Board()), np.random.default_rng(3))
+    cancelled = TorchSession(device="cpu")
+    assert not cancelled.on_calibration_requested(cap=FrameReader([frame]), gui=gui)
+    assert windows == ["Calibration", "destroyed"] and cancelled.config is None
     assert not TorchSession(device="cpu").on_calibration_requested()
     sess = TorchSession(device="cpu")
     sess.default_config_overrides = {"auto_recalibrate": True}
