@@ -1,36 +1,60 @@
-"""Batched N-stream pipeline: N camera streams in one step per frame tick.
+"""Batched N-stream pipeline, on one device or sharded over a stream mesh.
 
-Counterpart of chessboard_vision_tpu.parallel.multistream (without its
-mesh: multi-GPU is ROADMAP A14). A tick runs the stream-FOLDED core: the
-N streams' squares are extracted and blurred, then the geometry-independent
-perception core (``VisionPipeline._step_core``) runs once on (N*64, H, W)
-with every per-square constant tiled N-fold, stream-major (stream s,
-square q -> s*64 + q). The core is the single-stream step with more
-squares, so each of its ops launches once per tick whatever N is, and the
-Hough score matmul (kernel B1) runs once with N*64 columns. Every folded
-op is elementwise or a per-square reduction, so each stream's outputs are
-those of a single-stream pipeline. The device noise FSM (ops/fsm.py) then
-steps all N streams on (N, 64).
+Counterpart of chessboard_vision_tpu.parallel.multistream. A tick runs the
+stream-FOLDED core: the streams' squares are extracted and blurred, then
+the geometry-independent perception core (``VisionPipeline._step_core``)
+runs once on (n*64, H, W) with every per-square constant tiled n-fold,
+stream-major (stream s, square q -> s*64 + q). The core is the
+single-stream step with more squares, so each of its ops launches once per
+tick whatever n is, and the Hough score matmul (kernel B1) runs once with
+n*64 columns. Every folded op is elementwise or a per-square reduction, so
+each stream's outputs are those of a single-stream pipeline. The device
+noise FSM (ops/fsm.py) then steps the streams on (n, 64).
+
+Mesh (``mesh=``, parallel/mesh.py): the same tick on each slot of a stream
+mesh. Slot (d, k) holds streams [d*N/dp, (d+1)*N/dp) and runs the folded
+core on squares [k*64/sp, (k+1)*64/sp) of them, with its per-square
+constants and its state cut the same way (stream-major fold order). B1
+launches once a slot a tick, at that slot's width. Frames are replicated
+over "space" as the JAX package's ``P("data")`` frames are: each space slot
+warps all 64 squares of its streams and keeps its block. The noise FSM
+needs a stream's 64 ``visual_changes``: they are gathered from the row's
+space slots to slot (d, 0), which owns the row's FSM state (XLA's
+inserted all-gather in the JAX package). The base ``VisionPipeline`` and
+its constants (the Hough basis is 45.9 MB at 1080p) are built once a
+distinct device, not once a slot, and the tiled constants once a distinct
+(device, streams, squares) shape. A tick makes one H2D upload a slot (its
+own streams' frames and flags, onto its own device), then enqueues each
+slot's tick in turn: the conv tick does not wait on the device, so slots on
+different cards overlap; the exact backend reads a convergence flag back
+once a block of dilations (ops/canny.py), which serializes the slots. A
+tick's outputs come back as (N, 64) and (N,) leaves gathered onto the
+mesh's first slot (a few KB); the state stays where each slot computes it
+(``MeshState``). On a mesh that spans processes (parallel/distributed.py)
+a process runs its own slots on its own streams: ``step`` takes those
+streams' frames alone (or all N, of which it keeps its rows), and its
+outputs hold its streams, whose global rows they name (``streams``).
 
 Frames: with one shared geometry, HWC camera frames (host arrays too, as
 in the JAX package's tick, unlike its single-stream ``step``) take the
 single-stream pipeline's gather warp (ops/warp.py) and planar frames its
-matmul resample. Per-stream calibration: pass a LIST of N
-BoardGeometry objects instead of one. Each stream's squares are then
-resampled with its own plan (with the enhancer: its board warped with its
-own tile plan) from planar frames (HWC frames are permuted to planar on the
-device, the JAX package's host conversion); the rest is shared. All rigs
-must share the grid structure (square heights and widths) and the capture
-resolution; corners may differ.
+matmul resample. Per-stream calibration: pass a LIST of N BoardGeometry
+objects instead of one. Each stream's squares are then resampled with its
+own plan (with the enhancer: its board warped with its own tile plan) from
+planar frames (HWC frames are permuted to planar on the device, the JAX
+package's host conversion); the rest is shared. All rigs must share the
+grid structure (square heights and widths) and the capture resolution;
+corners may differ.
 
 The enhanced path enhances each stream's board on its own, as the
 single-stream pipeline does: the bilateral and CLAHE kernels launch once
-per stream per tick.
+per stream per tick (per stream and space slot on a mesh with a space
+axis).
 
-Host <-> device traffic: ``step`` makes one H2D copy per tick and
-``step_chunk`` one per chunk (frames, square masks and flags packed
-together, models/pipeline.upload); ``outputs_to_numpy`` reads a tick's or
-a chunk's outputs back in one D2H copy.
+Host <-> device traffic: ``step`` makes one H2D copy per tick and slot and
+``step_chunk`` one per chunk and slot (frames, square masks and flags
+packed together, models/pipeline.upload); ``outputs_to_numpy`` reads a
+tick's or a chunk's outputs back in one D2H copy.
 """
 
 from __future__ import annotations
@@ -55,10 +79,13 @@ from chessboard_vision_tpu_torch.ops import hough as hough_ops
 from chessboard_vision_tpu_torch.ops import matmul_resample as mr
 from chessboard_vision_tpu_torch.ops import piece as piece_ops
 from chessboard_vision_tpu_torch.ops.color import planar_bgr2gray
+from chessboard_vision_tpu_torch.parallel import mesh as mesh_lib
+from chessboard_vision_tpu_torch.utils.checkpoint import tree_map
 
 # Per tick and stream, the uploaded flags: 64 square-mask bits, then
 # "squares_to_check given" and "refresh references".
 _GIVEN, _REFRESH, _FLAGS = 64, 65, 66
+ALL_SQUARES = range(64)
 
 
 class MultiStreamState(NamedTuple):
@@ -66,20 +93,67 @@ class MultiStreamState(NamedTuple):
     noise: fsm_ops.NoiseFsmState  # leaves with a leading (N,) stream axis
 
 
+class MeshState(NamedTuple):
+    """A meshed pipeline's state, left where each slot computes it."""
+
+    pipe: tuple  # one PipelineState a local slot, mesh order: leaves (N/dp, 64/sp, ...)
+    noise: tuple  # one NoiseFsmState a local data row, on its first slot: leaves (N/dp, ...)
+
+
 class MultiStreamOutputs(NamedTuple):
     step: StepOutputs  # leaves (N, 64)
     noise: fsm_ops.NoiseFsmOut  # leaves (N,) or (N, 64)
+    # The global stream rows the leaves hold: all N, or on a mesh that spans
+    # processes this process's streams (the JAX array's addressable shards).
+    streams: Optional[range] = None
 
 
-def _tile(x, n: int, last: bool = False):
-    """A per-square constant of 64 squares -> of n*64, stream-major (stream
-    s, square q -> s*64 + q): a tensor along its first axis, or along its
-    last where the square axis is last; a tuple repeated."""
+class _Slot(NamedTuple):
+    block: mesh_lib.SlotBlock
+    pipe: VisionPipeline  # the device's pipeline, shared by its slots
+    consts: StepConsts  # per-square constants of the slot's streams and squares
+    plans: Optional[list]  # per-stream geometry: the slot's streams' (plan, dims)
+
+
+def _tile(x, n: int, squares: range = ALL_SQUARES, last: bool = False):
+    """A per-square constant of 64 squares -> of the block ``squares`` of n
+    streams, stream-major (stream s, block square j -> s*len(squares) + j):
+    a tensor along its first axis, or along its last where the square axis
+    is last; a tuple cut and repeated."""
     if isinstance(x, tuple):
-        return x * n
+        return x[squares.start:squares.stop] * n
+    if squares != ALL_SQUARES:
+        x = x[..., squares.start:squares.stop] if last else x[squares.start:squares.stop]
     reps = [1] * x.dim()
     reps[-1 if last else 0] = n
     return x.repeat(*reps)
+
+
+def _slot_consts(p: VisionPipeline, n: int, squares: range) -> StepConsts:
+    plan, dims, dg = p.consts.conv_plan, p.consts.conv_dims, p.consts.dg
+
+    def t(x):
+        return _tile(x, n, squares)
+
+    return StepConsts(
+        # The per-square geometry fields (the warp maps and square gathers
+        # serve the shared-geometry preprocess, not the core).
+        dg=dg._replace(sq_mask=t(dg.sq_mask), sq_mask_flat=t(dg.sq_mask_flat),
+                       sq_counts=t(dg.sq_counts), sq_heights=t(dg.sq_heights),
+                       sq_widths=t(dg.sq_widths)),
+        masks=piece_ops.PieceMasks(*map(t, p.consts.masks)),
+        params=None if p.consts.params is None else hough_ops.HoughParams(
+            *map(t, p.consts.params)),
+        # The score matmul's outputs and their validity table keep the
+        # square axis last (column n of the (Mq, n*64) scores).
+        conv_plan=None if plan is None else plan._replace(
+            r_valid=t(plan.r_valid), r_min=t(plan.r_min), r_max=t(plan.r_max),
+            win_offset_y=t(plan.win_offset_y), win_offset_x=t(plan.win_offset_x),
+            win_mask=_tile(plan.win_mask, n, squares, last=True),
+            kvalid=_tile(plan.kvalid, n, squares, last=True),
+        ),
+        conv_dims=None if dims is None else dims._replace(woy=t(dims.woy), wox=t(dims.wox)),
+    )
 
 
 def _map_pipe(fn, state: PipelineState) -> PipelineState:
@@ -89,31 +163,56 @@ def _map_pipe(fn, state: PipelineState) -> PipelineState:
     )
 
 
+def _fold(x: torch.Tensor) -> torch.Tensor:  # (n, m, ...) -> (n*m, ...)
+    return x.reshape((-1,) + tuple(x.shape[2:]))
+
+
+def _assemble(parts: list, per_row: int, device) -> tuple:
+    """Trees of one structure, one a slot in mesh order, leaves (n, m, ...)
+    or (n, ...) -> one tree on ``device``: a row's ``per_row`` parts joined
+    along the square axis, the rows along the stream axis."""
+    if len(parts) == 1:
+        return tree_map(lambda x: x.to(device), parts[0])
+
+    def join(*xs):
+        xs = [x.to(device) for x in xs]
+        if per_row > 1:
+            xs = [torch.cat(xs[i:i + per_row], dim=1) for i in range(0, len(xs), per_row)]
+        return torch.cat(xs)
+
+    return tree_map(join, *parts)
+
+
 def _stack(outs: List[MultiStreamOutputs]) -> MultiStreamOutputs:
     """T ticks' outputs -> one MultiStreamOutputs with leaves (T, N, ...)."""
     return MultiStreamOutputs(
         StepOutputs(*(torch.stack(f) for f in zip(*(o.step for o in outs)))),
         fsm_ops.NoiseFsmOut(*(torch.stack(f) for f in zip(*(o.noise for o in outs)))),
+        outs[0].streams,
     )
 
 
 class MultiStreamPipeline:
     """N-stream batched pipeline on one device (the card unless the caller
-    asks for the CPU)."""
+    asks for the CPU), or over the slots of a stream mesh (``mesh``, with
+    a data and optionally a space axis; ``device`` may then only name the
+    mesh's first slot)."""
 
     def __init__(
         self,
         geometry,
         n_streams: int,
+        mesh: Optional[mesh_lib.StreamMesh] = None,
         piece_settings: Optional[dict] = None,
         change_settings: Optional[dict] = None,
         detector_overrides: Optional[dict] = None,
         with_enhancer: bool = False,
         enhancer_profile: Optional[dict] = None,
         hough_backend: str = "auto",
-        device="cuda",
+        device=None,
     ):
         self.n_streams = n = int(n_streams)
+        self.mesh = mesh
         if isinstance(geometry, (list, tuple)):
             geos = list(geometry)
             if len(geos) != n:
@@ -132,146 +231,250 @@ class MultiStreamPipeline:
                     )
         else:
             base, geos = geometry, None
-        self.pipe = p = VisionPipeline(
-            base,
-            piece_settings=piece_settings,
-            change_settings=change_settings,
-            detector_overrides=detector_overrides,
-            with_enhancer=with_enhancer,
-            enhancer_profile=enhancer_profile,
-            hough_backend=hough_backend,
-            device=device,
-        )
-        self.device = p.device
-        # Per-stream geometry: each stream's resample plan (the frame ->
-        # board TILE plan with the enhancer, else the frame -> squares plan).
-        self._stream_plans = None
-        if geos is not None:
-            self._stream_plans = []
-            for g in geos:
-                qx, qy = (g.board_tile_query_coords()[:2] if with_enhancer
-                          else g.square_query_coords())
-                self._stream_plans.append(
-                    mr.build_plan(qx, qy, g.src_h, g.src_w, device=self.device)
+        # Slots a data row: the noise FSM of a row runs on its first slot.
+        self._per_row = 1 if mesh is None else mesh.axis_size(mesh_lib.SPACE)
+        blocks = self._blocks(device)
+        self.rows = mesh_lib.local_rows(blocks)
+
+        pipes, consts, plans = {}, {}, {}
+        self.slots: List[_Slot] = []
+        for b in blocks:
+            if b.device not in pipes:
+                pipes[b.device] = VisionPipeline(
+                    base,
+                    piece_settings=piece_settings,
+                    change_settings=change_settings,
+                    detector_overrides=detector_overrides,
+                    with_enhancer=with_enhancer,
+                    enhancer_profile=enhancer_profile,
+                    hough_backend=hough_backend,
+                    device=b.device,
                 )
+            p = pipes[b.device]
+            key = (b.device, len(b.streams), b.squares.start, b.squares.stop)
+            if key not in consts:
+                consts[key] = _slot_consts(p, len(b.streams), b.squares)
+            slot_plans = None
+            if geos is not None:
+                # Each stream's resample plan (the frame -> board TILE plan
+                # with the enhancer, else the frame -> squares plan), once a
+                # device that holds the stream.
+                for s in b.streams:
+                    if (b.device, s) not in plans:
+                        g = geos[s]
+                        qx, qy = (g.board_tile_query_coords()[:2] if with_enhancer
+                                  else g.square_query_coords())
+                        plans[b.device, s] = mr.build_plan(qx, qy, g.src_h, g.src_w,
+                                                           device=b.device)
+                slot_plans = [plans[b.device, s] for s in b.streams]
+            self.slots.append(_Slot(b, p, consts[key], slot_plans))
+        first = self.slots[0]
+        self.pipe, self.consts, self.device = first.pipe, first.consts, first.block.device
+        self._stream_plans = first.plans
 
-        plan, dims, dg = p.consts.conv_plan, p.consts.conv_dims, p.consts.dg
-
-        def t(x):
-            return _tile(x, n)
-
-        self.consts = StepConsts(
-            # The per-square geometry fields (the warp maps and square
-            # gathers serve the shared-geometry preprocess, not the core).
-            dg=dg._replace(sq_mask=t(dg.sq_mask), sq_mask_flat=t(dg.sq_mask_flat),
-                           sq_counts=t(dg.sq_counts), sq_heights=t(dg.sq_heights),
-                           sq_widths=t(dg.sq_widths)),
-            masks=piece_ops.PieceMasks(*map(t, p.consts.masks)),
-            params=None if p.consts.params is None else hough_ops.HoughParams(
-                *map(t, p.consts.params)),
-            # The score matmul's outputs and their validity table keep the
-            # square axis last (column n of the (Mq, N*64) scores).
-            conv_plan=None if plan is None else plan._replace(
-                r_valid=t(plan.r_valid), r_min=t(plan.r_min), r_max=t(plan.r_max),
-                win_offset_y=t(plan.win_offset_y), win_offset_x=t(plan.win_offset_x),
-                win_mask=_tile(plan.win_mask, n, last=True),
-                kvalid=_tile(plan.kvalid, n, last=True),
-            ),
-            conv_dims=None if dims is None else dims._replace(woy=t(dims.woy), wox=t(dims.wox)),
-        )
+    def _blocks(self, device) -> List[mesh_lib.SlotBlock]:
+        """This process's slots: one holding every stream and square without
+        a mesh, else the mesh's slots of this process."""
+        if self.mesh is None:
+            dev = resolve_device("cuda" if device is None else device, "MultiStreamPipeline")
+            return [mesh_lib.SlotBlock((0, 0), dev, 0, range(self.n_streams), ALL_SQUARES)]
+        blocks = mesh_lib.stream_square_sharding(self.mesh).local_blocks(self.n_streams)
+        if not blocks:
+            raise ValueError(f"no slot of {self.mesh} belongs to process {self.mesh.process}")
+        if device is not None and mesh_lib.slot_device(device) != blocks[0].device:
+            raise ValueError(f"device {str(device)!r} disagrees with the mesh, whose first "
+                             f"slot of this process is {blocks[0].device}")
+        rows = {}
+        for b in blocks:
+            rows.setdefault(b.position[0], []).append(b)
+        if any(len(r) != self._per_row for r in rows.values()):
+            raise ValueError("a data row's space slots must all belong to one process: the "
+                             "noise FSM gathers the row's squares on its first slot")
+        return blocks
 
     # -- device functions ------------------------------------------------
 
-    def _squares(self, frames: torch.Tensor):
-        """(N, 3, Hf, Wf) planar or (N, Hf, Wf, 3) HWC u8 -> folded blurred
-        gray squares (N*64, H, W) u8 and the change model's own blur (or
-        None)."""
-        p = self.pipe
-        if self._stream_plans is None:  # one batched warp or resample for the shared plan
-            return p.preprocess(frames)
-        if tp.is_hwc(frames):  # the per-stream plans resample planar frames
-            frames = frames.movedim(-1, -3)
-        if p.with_enhancer:
-            padded = torch.cat([
-                p._enhanced_board_squares(mr.warp_board_color(frames[i], plan, dims, p._tile_index))
-                for i, (plan, dims) in enumerate(self._stream_plans)
-            ])
+    def _squares(self, frames: torch.Tensor, slot: Optional[_Slot] = None):
+        """A slot's frames (its streams', (n, 3, Hf, Wf) planar or (n, Hf,
+        Wf, 3) HWC u8) -> its folded blurred gray squares (n*m, H, W) u8 of
+        its m squares a stream, and the change model's own blur (or None)."""
+        slot = slot or self.slots[0]
+        p = slot.pipe
+        if slot.plans is None:  # one batched warp or resample for the shared plan
+            squares = p.preprocess(frames)
         else:
-            gray = planar_bgr2gray(frames)  # (N, Hf, Wf)
-            padded = torch.cat([mr.resample_gray_u8(gray[i], plan, dims)
-                                for i, (plan, dims) in enumerate(self._stream_plans)])
-        return p.blur(padded)
+            if tp.is_hwc(frames):  # the per-stream plans resample planar frames
+                frames = frames.movedim(-1, -3)
+            if p.with_enhancer:
+                padded = torch.cat([
+                    p._enhanced_board_squares(mr.warp_board_color(frames[i], plan, dims,
+                                                                  p._tile_index))
+                    for i, (plan, dims) in enumerate(slot.plans)
+                ])
+            else:
+                gray = planar_bgr2gray(frames)  # (n, Hf, Wf)
+                padded = torch.cat([mr.resample_gray_u8(gray[i], plan, dims)
+                                    for i, (plan, dims) in enumerate(slot.plans)])
+            squares = p.blur(padded)
+        sq = slot.block.squares
+        if sq == ALL_SQUARES:
+            return squares
 
-    def _fold(self, x: torch.Tensor) -> torch.Tensor:  # (N, 64, ...) -> (N*64, ...)
-        return x.reshape((self.n_streams * 64,) + tuple(x.shape[2:]))
+        def block(x):  # every square warped; keep this slot's block of each stream
+            return None if x is None else _fold(
+                x.reshape((-1, 64) + tuple(x.shape[1:]))[:, sq.start:sq.stop])
 
-    def _unfold(self, x: torch.Tensor) -> torch.Tensor:  # (N*64, ...) -> (N, 64, ...)
-        return x.reshape((self.n_streams, 64) + tuple(x.shape[1:]))
+        return tuple(map(block, squares))
+
+    def _tick_slots(self, state, inputs):
+        """One tick on this process's slots: ``inputs`` one (frames, flags
+        (n, 66) bool) a slot, on its device. Returns (state, outputs
+        gathered onto the first slot)."""
+        pipes, noises = self._parts(state)
+        new_pipes, outs = [], []
+        for slot, ps, (frames, flags) in zip(self.slots, pipes, inputs):
+            gray, gray_cd = self._squares(frames, slot)
+            sq, n = slot.block.squares, len(slot.block.streams)
+            new, out = slot.pipe._step_core(
+                _map_pipe(_fold, ps),
+                gray,
+                flags[:, sq.start:sq.stop].reshape(-1),
+                flags[:, _GIVEN].repeat_interleave(len(sq)),
+                flags[:, _REFRESH].repeat_interleave(len(sq)),
+                slot.consts,
+                gray_change=gray_cd,
+            )
+            new_pipes.append(_map_pipe(lambda x: x.reshape((n, -1) + tuple(x.shape[1:])), new))
+            outs.append(StepOutputs(*(x.reshape(n, -1) for x in out)))
+        k = self._per_row
+        new_noises, noise_outs = [], []
+        for r, noise in enumerate(noises):
+            row = outs[r * k:(r + 1) * k]
+            # The row's 64 squares on its first slot, which owns its FSM state.
+            changes = row[0].visual_changes if k == 1 else torch.cat(
+                [o.visual_changes.to(self.slots[r * k].block.device) for o in row], dim=1)
+            noise, noise_out = fsm_ops.noise_step(noise, changes)
+            new_noises.append(noise)
+            noise_outs.append(noise_out)
+        return (self._state(new_pipes, new_noises),
+                MultiStreamOutputs(_assemble(outs, k, self.device),
+                                   _assemble(noise_outs, 1, self.device), self.rows))
 
     def _tick(self, state: MultiStreamState, frames: torch.Tensor, flags: torch.Tensor):
-        """One tick on device tensors: frames (N, 3, Hf, Wf) or (N, Hf, Wf, 3) u8, flags
-        (N, 66) bool (square masks, given, refresh)."""
-        gray, gray_cd = self._squares(frames)
-        pipe_state, out = self.pipe._step_core(
-            _map_pipe(self._fold, state.pipe),
-            gray,
-            flags[:, :64].reshape(-1),
-            flags[:, _GIVEN].repeat_interleave(64),
-            flags[:, _REFRESH].repeat_interleave(64),
-            self.consts,
-            gray_change=gray_cd,
+        """One tick of an unmeshed pipeline on device tensors: frames (N, 3,
+        Hf, Wf) or (N, Hf, Wf, 3) u8, flags (N, 66) bool."""
+        return self._tick_slots(state, [(frames, flags)])
+
+    # -- state layout ------------------------------------------------------
+
+    def _parts(self, state):
+        """(one pipe state a slot, one noise state a row)."""
+        if isinstance(state, MeshState):
+            return list(state.pipe), list(state.noise)
+        return [state.pipe], [state.noise]
+
+    def _state(self, pipes, noises):
+        if self.mesh is None:
+            return MultiStreamState(pipes[0], noises[0])
+        return MeshState(tuple(pipes), tuple(noises))
+
+    def _row_slots(self) -> List[_Slot]:
+        return self.slots[::self._per_row]
+
+    def replace_streams(self, state, fresh, streams):
+        """``state`` with the rows of the given global streams taken from
+        ``fresh``, a state of this pipeline's layout."""
+        def swap(old, new, block):
+            local = [s - block.streams.start for s in streams if s in block.streams]
+            if not local:
+                return old
+            idx = torch.as_tensor(local, device=block.device)
+            return tree_map(lambda o, f: o.index_copy(0, idx, f[idx]), old, new)
+
+        (pipes, noises), (fpipes, fnoises) = self._parts(state), self._parts(fresh)
+        return self._state(
+            [swap(o, f, s.block) for o, f, s in zip(pipes, fpipes, self.slots)],
+            [swap(o, f, s.block) for o, f, s in zip(noises, fnoises, self._row_slots())],
         )
-        out = StepOutputs(*map(self._unfold, out))
-        noise, noise_out = fsm_ops.noise_step(state.noise, out.visual_changes)
-        return (MultiStreamState(_map_pipe(self._unfold, pipe_state), noise),
-                MultiStreamOutputs(out, noise_out))
 
     # -- host API --------------------------------------------------------
 
-    def init_state(self) -> MultiStreamState:
-        n = self.n_streams
-        return MultiStreamState(
-            pipe=_map_pipe(lambda x: x.expand((n,) + tuple(x.shape)).clone(),
-                           self.pipe.init_state()),
-            noise=fsm_ops.init_state(n, device=self.device),
-        )
+    def init_state(self):
+        """Every stream's initial state: a MultiStreamState, on a mesh a
+        MeshState (each slot's block on its device)."""
+        pipes = []
+        for slot in self.slots:
+            sq, n = slot.block.squares, len(slot.block.streams)
+            pipes.append(_map_pipe(
+                lambda x: x[sq.start:sq.stop].expand((n, len(sq)) + tuple(x.shape[1:])).clone(),
+                slot.pipe.init_state()))
+        noises = [fsm_ops.init_state(len(s.block.streams), device=s.block.device)
+                  for s in self._row_slots()]
+        return self._state(pipes, noises)
 
-    def capture_reference(self, state: MultiStreamState, frames) -> MultiStreamState:
+    def _local(self, n_given: int) -> int:
+        """The global row of the given frames' first stream: they hold all
+        N streams or, on a mesh across processes, this process's."""
+        if n_given == self.n_streams:
+            return 0
+        if n_given == len(self.rows):
+            return self.rows.start
+        raise ValueError(f"{n_given} streams given; this pipeline takes {self.n_streams} "
+                         f"(or this process's {len(self.rows)})")
+
+    def _uploads(self, frames, flags: np.ndarray, axis: int) -> list:
+        """One H2D copy a slot: its streams' frames and flags (the stream
+        axis is ``axis`` of both) onto its device."""
+        frames = np.asarray(frames)
+        first = self._local(frames.shape[axis])
+        ups = []
+        for slot in self.slots:
+            rows = (slice(None),) * axis + (slice(slot.block.streams.start - first,
+                                                  slot.block.streams.stop - first),)
+            ups.append(tp.upload(frames[rows], flags[rows], slot.block.device))
+        return ups
+
+    def capture_reference(self, state, frames):
         """Set every stream's visual references and change model from
         frames (N, H, W, 3) HWC or (N, 3, H, W) planar u8."""
-        frames_d, _ = tp.upload(frames, np.zeros(0, bool), self.device)
-        pipe = self.pipe._capture_core(_map_pipe(self._fold, state.pipe),
-                                       *self._squares(frames_d))
-        return MultiStreamState(pipe=_map_pipe(self._unfold, pipe), noise=state.noise)
+        pipes, noises = self._parts(state)
+        uploads = self._uploads(frames, np.zeros((len(frames), 0), bool), 0)
+        new = []
+        for slot, ps, (frames_d, _) in zip(self.slots, pipes, uploads):
+            n = len(slot.block.streams)
+            captured = slot.pipe._capture_core(_map_pipe(_fold, ps), *self._squares(frames_d, slot))
+            new.append(_map_pipe(lambda x: x.reshape((n, -1) + tuple(x.shape[1:])), captured))
+        return self._state(new, noises)
 
-    def _flags(self, lead, s2c_masks=None, refresh=None) -> np.ndarray:
-        flags = np.zeros(lead + (self.n_streams, _FLAGS), bool)
+    def _flags(self, lead, s2c_masks=None, refresh=None, n=None) -> np.ndarray:
+        n = self.n_streams if n is None else n
+        flags = np.zeros(lead + (n, _FLAGS), bool)
         if s2c_masks is not None:
-            flags[..., :64] = np.asarray(s2c_masks, bool).reshape(self.n_streams, 64)
+            flags[..., :64] = np.asarray(s2c_masks, bool).reshape(n, 64)
             flags[..., _GIVEN] = True
         if refresh is not None:
-            flags[..., _REFRESH] = np.asarray(refresh, bool).reshape(self.n_streams)
+            flags[..., _REFRESH] = np.asarray(refresh, bool).reshape(n)
         return flags
 
-    def step(self, state: MultiStreamState, frames, s2c_masks=None, refresh=None):
-        """One tick for all N streams. frames: (N, H, W, 3) HWC or
-        (N, 3, H, W) planar u8; s2c_masks: optional (N, 64) bool squares
-        to force a fresh detection on; refresh: optional (N,) bool forced
-        re-reference per stream. Returns (state, MultiStreamOutputs on the
-        device)."""
-        frames_d, flags = tp.upload(frames, self._flags((), s2c_masks, refresh), self.device)
-        return self._tick(state, frames_d, flags)
+    def step(self, state, frames, s2c_masks=None, refresh=None):
+        """One tick for all N streams (or this process's, on a mesh across
+        processes). frames: (N, H, W, 3) HWC or (N, 3, H, W) planar u8;
+        s2c_masks: optional (N, 64) bool squares to force a fresh detection
+        on; refresh: optional (N,) bool forced re-reference per stream.
+        Returns (state, MultiStreamOutputs on the device)."""
+        flags = self._flags((), s2c_masks, refresh, np.shape(frames)[0])
+        return self._tick_slots(state, self._uploads(frames, flags, 0))
 
-    def step_chunk(self, state: MultiStreamState, frames):
-        """T ticks for all N streams from one upload: frames (T, N, H, W, 3)
-        or (T, N, 3, H, W) u8. Outputs have leading (T, N) axes; tick
+    def step_chunk(self, state, frames):
+        """T ticks for all N streams from one upload a slot: frames (T, N, H,
+        W, 3) or (T, N, 3, H, W) u8. Outputs have leading (T, N) axes; tick
         semantics equal T sequential ``step`` calls (no squares_to_check,
         no refresh)."""
-        t_len = np.shape(frames)[0]
-        frames_d, flags = tp.upload(frames, self._flags((t_len,)), self.device)
+        t_len, n = np.shape(frames)[:2]
+        ups = self._uploads(frames, self._flags((t_len,), n=n), 1)
         outs = []
         for i in range(t_len):
-            state, out = self._tick(state, frames_d[i], flags[i])
+            state, out = self._tick_slots(state, [(f[i], g[i]) for f, g in ups])
             outs.append(out)
         return state, _stack(outs)
 
@@ -281,24 +484,45 @@ def outputs_to_numpy(out: MultiStreamOutputs) -> MultiStreamOutputs:
     D2H copy."""
     host = tp.leaves_to_numpy([*out.step, *out.noise])
     k = len(out.step)
-    return MultiStreamOutputs(StepOutputs(*host[:k]), fsm_ops.NoiseFsmOut(*host[k:]))
+    return MultiStreamOutputs(StepOutputs(*host[:k]), fsm_ops.NoiseFsmOut(*host[k:]), out.streams)
 
 
-def multistream_state_from_numpy(tree, device="cuda") -> MultiStreamState:
+def multistream_state_from_numpy(tree, device=None, mesh: Optional[mesh_lib.StreamMesh] = None):
     """A MultiStreamState-shaped tree of arrays (e.g. the JAX package's
-    state, leaves through ``np.asarray``) -> the port's state on ``device``
-    (the card unless the caller asks for the CPU). Leaves are matched by
+    state, leaves through ``np.asarray``: a meshed JAX state too) -> the
+    port's state: on ``device`` (the card unless the caller asks for the
+    CPU), or with ``mesh`` scattered over its slots as a meshed pipeline of
+    the tree's N streams holds it (a MeshState). Leaves are matched by
     field name."""
-    device = resolve_device(device, "multistream_state_from_numpy")
-    noise = fsm_ops.NoiseFsmState(**{
-        name: torch.as_tensor(np.array(getattr(tree.noise, name)), device=device)
-        for name in fsm_ops.NoiseFsmState._fields
-    })
-    return MultiStreamState(pipe=tp.state_from_numpy(tree.pipe, device=device), noise=noise)
+    def named(cls, node):
+        return cls(**{name: np.asarray(getattr(node, name)) for name in cls._fields})
+
+    noise = named(fsm_ops.NoiseFsmState, tree.noise)
+    if mesh is not None:
+        pipe = PipelineState(named(pd_model.PieceState, tree.pipe.piece),
+                             named(change_ops.ChangeModelState, tree.pipe.change))
+        blocks = mesh_lib.stream_square_sharding(mesh).local_blocks(len(noise.mode))
+        if device is not None and mesh_lib.slot_device(device) != blocks[0].device:
+            raise ValueError(f"device {str(device)!r} disagrees with the mesh's first slot "
+                             f"{blocks[0].device}")
+        # The noise state of a row on its first slot.
+        noises = mesh_lib.shard_pytree_leading_axis(noise, mesh)[::mesh.axis_size(mesh_lib.SPACE)]
+        return MeshState(tuple(mesh_lib.shard_pytree_stream_square(pipe, mesh)), tuple(noises))
+    device = resolve_device("cuda" if device is None else device, "multistream_state_from_numpy")
+    return MultiStreamState(
+        pipe=tp.state_from_numpy(tree.pipe, device=device),
+        noise=fsm_ops.NoiseFsmState(*(torch.as_tensor(np.array(x), device=device) for x in noise)),
+    )
 
 
-def multistream_state_to_numpy(state: MultiStreamState) -> MultiStreamState:
-    """The port's state -> the same tree with host numpy leaves."""
+def multistream_state_to_numpy(state) -> MultiStreamState:
+    """The port's state -> a MultiStreamState with host numpy leaves (N,
+    ...); a MeshState is gathered from its slots (on a mesh across
+    processes: this process's streams)."""
+    if isinstance(state, MeshState):
+        per_row, cpu = len(state.pipe) // len(state.noise), torch.device("cpu")
+        state = MultiStreamState(_assemble(list(state.pipe), per_row, cpu),
+                                 _assemble(list(state.noise), 1, cpu))
     return MultiStreamState(
         pipe=tp.state_to_numpy(state.pipe),
         noise=fsm_ops.NoiseFsmState(*(x.cpu().numpy() for x in state.noise)),

@@ -8,8 +8,12 @@ and feeds smart-scan masks and post-move re-references back per stream.
 Per-stream semantics match GameSession (same stability constants and
 inference); the noise FSM runs on the device (ops/fsm.py).
 
-``save_checkpoint``/``resume_checkpoint`` use the JAX package's format, so
-a checkpoint of either package resumes in the other.
+``mesh`` shards the streams (and squares) over a stream mesh
+(parallel/mesh.py), as in the JAX package; the drift rebuild and
+``resume_checkpoint`` keep it, and the drift monitors run on the mesh's
+first slot. ``save_checkpoint``/``resume_checkpoint`` use the JAX
+package's format, the device state gathered from a mesh's slots, so a
+checkpoint of either package resumes in the other, meshed or not.
 ``auto_recalibrate=True`` gives every rig a DriftMonitor (session/drift.py)
 checked every ``drift_check_interval`` ticks; the rigs confirmed bumped in
 a tick get their shifted corners in ONE rebuild of the pipeline in
@@ -26,11 +30,15 @@ import torch
 
 from chessboard_vision_tpu_torch.models.pipeline import occupancy_to_set
 from chessboard_vision_tpu_torch.ops.layout import positions_to_mask
-from chessboard_vision_tpu_torch.parallel.multistream import MultiStreamPipeline
+from chessboard_vision_tpu_torch.parallel.multistream import (
+    MultiStreamPipeline,
+    multistream_state_from_numpy,
+    multistream_state_to_numpy,
+)
 from chessboard_vision_tpu_torch.rules import GameState, chess
 from chessboard_vision_tpu_torch.session.drift import DriftMonitor
 from chessboard_vision_tpu_torch.session.inference import infer_move_from_diff
-from chessboard_vision_tpu_torch.utils.checkpoint import load_tree, read_meta, save_tree, tree_map
+from chessboard_vision_tpu_torch.utils.checkpoint import load_tree, read_meta, save_tree
 from chessboard_vision_tpu_torch.utils.config import (
     PIECE_SETTINGS_FILE,
     SENSITIVITY_FILE,
@@ -57,20 +65,22 @@ class MultiStreamSession:
         self,
         geometry,
         n_streams: int,
+        mesh=None,
         on_move_detected: Optional[Callable[[int, "chess.Move"], bool]] = None,
         auto_recalibrate: bool = False,
         drift_check_interval: int = 300,
         drift_threshold_px: float = 4.0,
         drift_max_px: float = 80.0,
         drift_confirm: int = 2,
-        device="cuda",
+        device=None,
         **pipeline_kw,
     ):
         """``geometry``: one BoardGeometry for all rigs or a list of N.
-        ``pipeline_kw`` go to MultiStreamPipeline; the tuned settings files
-        are read as GameSession.configure reads them, explicit keywords
-        win. ``auto_recalibrate`` turns on the per-rig drift checks, with
-        the ``drift_*`` gates of session/drift.py."""
+        ``mesh``, ``device`` (the card unless the caller asks for the CPU or
+        passes a mesh) and ``pipeline_kw`` go to MultiStreamPipeline; the
+        tuned settings files are read as GameSession.configure reads them,
+        explicit keywords win. ``auto_recalibrate`` turns on the per-rig
+        drift checks, with the ``drift_*`` gates of session/drift.py."""
         self.n = n_streams
         if isinstance(geometry, (list, tuple)):
             self.geometries = list(geometry)
@@ -78,7 +88,7 @@ class MultiStreamSession:
             self.geometries = [geometry] * n_streams
         pipeline_kw.setdefault("piece_settings", load_json_config(PIECE_SETTINGS_FILE))
         pipeline_kw.setdefault("change_settings", load_json_config(SENSITIVITY_FILE))
-        self._pipeline_kw = dict(pipeline_kw, device=device)
+        self._pipeline_kw = dict(pipeline_kw, mesh=mesh, device=device)
         self.ms = MultiStreamPipeline(geometry, n_streams=n_streams, **self._pipeline_kw)
         self.device = self.ms.device
         self.state = self.ms.init_state()
@@ -133,9 +143,7 @@ class MultiStreamSession:
         self.log.warning("streams %s auto-recalibrating to shifted corners", confirmed)
         self.ms = MultiStreamPipeline(self.geometries, n_streams=self.n, **self._pipeline_kw)
         fresh = self.ms.capture_reference(self.ms.init_state(), frames)
-        idx = torch.as_tensor(confirmed, device=self.device)
-        self.state = tree_map(lambda old, new: old.index_copy(0, idx, new[idx]),
-                              self.state, fresh)
+        self.state = self.ms.replace_streams(self.state, fresh, confirmed)
         for i in confirmed:
             st = self.streams[i]
             st.stable_count = 0
@@ -225,7 +233,8 @@ class MultiStreamSession:
     def save_checkpoint(self, path: str):
         """Snapshot all N games mid-play: the batched device state (visual
         references, EMA models, detection history, device noise FSM; leaves
-        with a leading (N,) axis) and every stream's host rule state."""
+        with a leading (N,) axis, gathered from a mesh's slots) and every
+        stream's host rule state."""
         meta = {
             "n": self.n,
             "frame_count": self.frame_count,
@@ -247,7 +256,7 @@ class MultiStreamSession:
                 for g in self.geometries
             ],
         }
-        save_tree(path, self.state, meta)
+        save_tree(path, multistream_state_to_numpy(self.state), meta)
         self.log.info("multi-stream checkpoint saved: %s", path)
 
     def resume_checkpoint(self, path: str) -> dict:
@@ -257,7 +266,10 @@ class MultiStreamSession:
         n_ckpt = read_meta(path)["n"]
         if n_ckpt != self.n:
             raise ValueError(f"checkpoint has {n_ckpt} streams; this session has {self.n}")
-        state, meta = load_tree(path, self.ms.init_state(), self.device)
+        # Loaded on the host into the unsharded layout, then placed as the
+        # pipeline holds it (scattered over a mesh's slots).
+        state, meta = load_tree(path, multistream_state_to_numpy(self.ms.init_state()), "cpu")
+        state = multistream_state_from_numpy(state, device=self.device, mesh=self.ms.mesh)
         # The references were captured under the SAVED corners: rigs whose
         # corners differ from this session's get them back, and the
         # pipeline is rebuilt in per-stream-geometry mode.

@@ -94,7 +94,31 @@ the last line:
    - MultiStreamSession with 8 streams: every stream commits its move and
      reaches its FEN; a checkpoint saved mid-game and resumed into a fresh
      session makes the same commits on the same ticks.
-8. footage path (tools/process_video.py, api.py) on rendered 1920x1080
+8. mesh path (parallel/mesh.py, the meshed MultiStreamPipeline) on the
+   streams phase's 1080p frames, 8 streams, each showing its own first
+   move (stream 0: e2e4), on 8 slots spread over the cards
+   (``cuda:{i % cards}``: cuda:0 eight times on one card): the dp 8 mesh,
+   the dp x sp 4 x 2 mesh, per-stream geometry on dp 8 (the odd rigs'
+   corners shifted) and the enhanced dp 8 mesh, each a capture and 3 ticks
+   against the unsharded MultiStreamPipeline and one single-stream
+   pipeline a stream on the card (bool/i32 exactly, f32 within the CPU
+   tests' tolerance, the FSM outputs exactly), every stream's occupancy
+   equal to its rendered truth; one base pipeline a distinct device; B1
+   once a slot a tick on the TMA kernel at the slot's width (N = 64), B2,
+   B3 and B4 once a stream a tick on the enhanced mesh. Then ms a tick of
+   unsharded, dp 8 and 4 x 2 in turns (unsharded, dp 8, 4 x 2, 4 x 2, dp
+   8, unsharded) with device busy and ops a tick: on one card the host
+   cost of sharding, not a scaling figure.
+9. fleet path (parallel/distributed.py, tools/dryrun_multigpu.py): two
+   ``--fleet-worker`` processes over Gloo, both on cuda:0, 4 streams of
+   1280x720 each on 2 slots each, every rank's occupancy equal to its rows
+   of this process's unsharded run and the fleet's all_reduce of
+   occupancy equal to its sum (each waited 120 s, killed past it); a
+   two-process NCCL fleet where the machine has two cards (else a line
+   says why not); then a one-process NCCL group on the card: its
+   all_reduce of the 8 streams' occupancy counts equals their sum. The
+   phase's wall time is printed.
+10. footage path (tools/process_video.py, api.py) on rendered 1920x1080
    frames with piece types (per-square colors, per-type disc radii):
    - process_video.run_capture over a scripted game held in memory (4
      start frames, 28 after e2e4, 28 after e7e5; a reader at 30 fps,
@@ -123,7 +147,7 @@ the last line:
      path), the output within ROADMAP Queue C 7's limits of the same call on
      the CPU; ms a call at each shape.
 
-9. live path (tools/play_lichess.py, session/lichess_session.py,
+11. live path (tools/play_lichess.py, session/lichess_session.py,
    session/drift.py, native.FrameRing) at 1280x720, the live driver's
    capture, on the board corners of tests/fixtures.DEFAULT_CORNERS
    rendered by tools/synth.SynthCamera:
@@ -144,7 +168,7 @@ the last line:
      bumped, one rebuild in per-stream-geometry mode, then every rig
      commits e2e4; the drift check of all rigs and the rebuild timed.
 
-10. ui path (tools/calibrate_piece_detector.py, calibrate_sensitivity.py,
+12. ui path (tools/calibrate_piece_detector.py, calibrate_sensitivity.py,
    calibrate_colors.py, enhance_demo.py, calibration_module.py, the
    session's radar) at 1280x720, the tools' capture, on
    tests/fixtures.DEFAULT_CORNERS, through a stand-in for cv2's HighGUI
@@ -186,10 +210,12 @@ calls as an upper bound for a step that synchronizes).
 Kernel launch counts are set to 0 just before each path and read just
 after it: the plain path must launch B1 and none of B2-B4, the enhanced
 path all four, with exactly one B3 (histograms + LUTs) and one B4 launch
-per CLAHE call, the exact path none, the streams path all four, the
-footage path all four, the live path all four (B2-B4 on the enhanced
+per CLAHE call, the exact path none, the streams path all four, the mesh
+path all four (the unsharded pipeline it is compared with and timed
+beside counts nothing; the fleet's launches are in its worker
+processes), the footage path all four, the live path all four (B2-B4 on the enhanced
 streams), the ui path all four; B1's 1080p launches must take the TMA
-kernel. On the exact, streams, footage, live and ui paths the counts are
+kernel. On the exact, streams, mesh, footage, live and ui paths the counts are
 set to 0 just before each call of the path's pipelines, sessions, entry
 points and tools and read
 just after it, so the pipelines and plain versions they are compared with
@@ -206,7 +232,9 @@ import json
 import os
 import queue
 import re
+import socket
 import subprocess
+import sys
 import tempfile
 import threading
 import time
@@ -231,7 +259,9 @@ from chessboard_vision_tpu_torch.ops.hough_conv import edge_planes
 from chessboard_vision_tpu_torch.ops.layout import to_planar
 from chessboard_vision_tpu_torch.geometry import BoardGeometry
 from chessboard_vision_tpu_torch.ops.layout import positions_to_mask
+from chessboard_vision_tpu_torch.parallel import distributed as pdist
 from chessboard_vision_tpu_torch.parallel import multistream as tms
+from chessboard_vision_tpu_torch.parallel.mesh import make_mesh
 from chessboard_vision_tpu_torch import api
 from chessboard_vision_tpu_torch import geometry
 from chessboard_vision_tpu_torch.parallel.session import MultiStreamSession
@@ -240,7 +270,7 @@ from chessboard_vision_tpu_torch.rules.fen import occupancy_to_fen
 from chessboard_vision_tpu_torch.rules.pgn import game_to_pgn
 from chessboard_vision_tpu_torch.session.game_session import GameSession
 from chessboard_vision_tpu_torch.session.lichess_session import LichessSession
-from chessboard_vision_tpu_torch.tools import play_lichess, process_video
+from chessboard_vision_tpu_torch.tools import dryrun_multigpu, play_lichess, process_video
 from chessboard_vision_tpu_torch.tools.demo_pipeline import calibrated_session, occupancy_of, play
 from chessboard_vision_tpu_torch.utils import checkpoint as ckpt
 from chessboard_vision_tpu_torch.utils.profiling import FpsCounter, StageTimer
@@ -391,8 +421,15 @@ def _pad():
 
 @functools.lru_cache(maxsize=1)
 def pad_keys():
-    """The profiler's key of the pads' sleep kernel, to leave it out."""
-    return frozenset(profiled(_pad, 1)[0])
+    """The profiler's key of the pads' sleep kernel, to leave it out. A
+    profiling session now and then records nothing (Queue C 15), and an
+    empty set cached here would count the pads as the window's own
+    records: profile the pads again until a session sees them."""
+    for _ in range(5):
+        keys = profiled(_pad, 1)[0]
+        if keys:
+            return frozenset(keys)
+    raise RuntimeError("torch.profiler saw no record of the pads' sleep kernels in 5 sessions")
 
 
 def step_busy(fn, iters):
@@ -1312,7 +1349,7 @@ def streams_phase(corners, camera, g, enhanced_pipe, smi):
         multistream_session_phase(g, sets, initial)
     counts = {name: launches[name] for name in COUNTERS}
     phase("streams", f"kernel launches on this path: {counts}")
-    return counts, b1_err
+    return counts, b1_err, (sets, initial, occs)
 
 
 def multistream_session_phase(g, sets, initial):
@@ -1367,6 +1404,261 @@ def multistream_session_phase(g, sets, initial):
     phase("streams", f"MultiStreamSession (8 streams): every stream committed its scripted "
           f"move (ticks {[c[1] for c in committed]}) and reached its FEN; a checkpoint of tick "
           f"{SESSION_SAVE_TICK} resumed into a fresh session made the same commits")
+
+
+MESH_STREAMS = 8
+MESH_TICKS = 3
+FLEET_TIMEOUT_S = 120
+FLEET_SLOTS = 2  # slots a fleet process: 2 of its 4 streams a slot
+
+
+def check_mesh_tick(got, ms, label, enhanced=False):
+    """One tick of a meshed pipeline: B1 once a slot, on the TMA kernel at
+    the slot's width (its streams times its squares); B2, B3 (through
+    clahe_hist_luts) and B4 once a stream and space slot when enhanced,
+    else not at all."""
+    slots = len(ms.slots)
+    k = sum(len(s.block.streams) for s in ms.slots) if enhanced else 0
+    want = {"score_matmul": slots, "bilateral": k, "clahe_hist": 0, "clahe_hist_luts": k,
+            "clahe_apply": k}
+    check(got == want, f"{label}: launches in one tick {got}, want {want}")
+    width = len(ms.slots[0].block.streams) * len(ms.slots[0].block.squares)
+    path, shape = sm.score_matmul.last_path, sm.score_matmul.last_shape
+    check(path == "tma" and shape[1] == width,
+          f"{label}: B1 took the {path} kernel at (M, N, K) {shape}, want N = {width} on tma")
+
+
+def mesh_vs_unsharded(meshed, unsharded, singles, refs, ticks, label, launches, enhanced=False):
+    """Capture and MESH_TICKS ticks of (frames, masks) through the meshed
+    pipeline (counted), the unsharded pipeline and one single-stream
+    pipeline a stream (``singles[s]``, fed ``single_frames(frames, s)``):
+    every stream's outputs equal to both (bool/i32 exactly, f32 within the
+    CPU tests' tolerance; the FSM outputs exactly). Returns the meshed host
+    outputs of the last tick and its state."""
+    n = meshed.n_streams
+    with counted(launches):
+        state = meshed.capture_reference(meshed.init_state(), refs)
+    ref_state = unsharded.capture_reference(unsharded.init_state(), refs)
+    single_states = [pipe.capture_reference(pipe.init_state(), feed(refs[s]))
+                     for s, (pipe, feed) in enumerate(singles)]
+    for t, (frames, masks) in enumerate(ticks):
+        with counted(launches) as got:
+            state, out = meshed.step(state, frames, s2c_masks=masks)
+        check_mesh_tick(got, meshed, f"{label} tick {t}", enhanced)
+        host = tms.outputs_to_numpy(out)
+        check(host.step.occupancy.shape == (n, 64) and host.noise.mode.shape == (n,)
+              and out.streams == range(n) and out.step.occupancy.device == meshed.device,
+              f"{label}: outputs {host.step.occupancy.shape} on {out.step.occupancy.device}")
+        ref_state, ref = unsharded.step(ref_state, frames, s2c_masks=masks)
+        ref = tms.outputs_to_numpy(ref)
+        for s in range(n):
+            _compare_outputs(_stream_outputs(host, s), _stream_outputs(ref, s),
+                             f"{label} tick {t} stream {s} vs unsharded")
+            pipe, feed = singles[s]
+            single_states[s], o = pipe.step(single_states[s], feed(frames[s]),
+                                            squares_to_check=tp.occupancy_to_set(masks[s]))
+            _compare_outputs(_stream_outputs(host, s), tp.outputs_to_numpy(o),
+                             f"{label} tick {t} stream {s} vs single-stream")
+        for f in host.noise._fields:
+            check(np.array_equal(getattr(host.noise, f), getattr(ref.noise, f)),
+                  f"{label} tick {t}: noise {f} differs from the unsharded pipeline")
+    return host, state
+
+
+def mesh_tick_ms(ms, state, frame_sets, masks, ticks=TIMED_TICKS):
+    """ms a tick of chained ticks (host clock, the card synchronized at
+    both ends), and the state."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(ticks):
+        state, _ = ms.step(state, frame_sets[t % len(frame_sets)], s2c_masks=masks)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / ticks, state
+
+
+def mesh_phase(corners, g, frames, smi):
+    """The stream mesh (parallel/mesh.py) at 1080p on MESH_STREAMS streams,
+    each showing its own first move (stream 0: e2e4), on slots spread over
+    the cards (one card: cuda:0 eight times): dp 8, dp x sp 4 x 2,
+    per-stream geometry (odd rigs' corners shifted) on dp 8, and enhanced
+    on dp 8, each against the unsharded pipeline and one single-stream
+    pipeline a stream, with the launch counts set to 0 just before each
+    meshed call and read just after it; then ms a tick of unsharded, dp 8
+    and 4 x 2 in turns. Returns the path's counts."""
+    sets, initial, occs = frames
+    n = MESH_STREAMS
+    cards = torch.cuda.device_count()
+    slots = [f"cuda:{i % cards}" for i in range(n)]
+    phase("mesh", f"{cards} card(s); slots {slots}")
+    dp = make_mesh(n, devices=slots)
+    dpsp = make_mesh(n, ("data", "space"), (n // 2, 2), devices=slots)
+    refs = np.stack([initial[s % 3] for s in range(n)])
+    masks = [np.stack([positions_to_mask(_occ_set(o)) for o in occs[:n]]), _all_masks(n)]
+    ticks = [(np.stack(sets[t % 2][:n]), masks[t % 2]) for t in range(MESH_TICKS)]
+    launches = collections.Counter()
+    single = tp.VisionPipeline(g, device=DEVICE)
+    hwc = [(single, on_card)] * n  # the tick warps HWC host frames by gather, as the singles do
+    unsharded = tms.MultiStreamPipeline(g, n, device=DEVICE)
+    meshed = {}
+    for label, mesh in (("dp 8", dp), ("dp x sp 4x2", dpsp)):
+        ms = tms.MultiStreamPipeline(g, n, mesh=mesh)
+        check(len({id(s.pipe) for s in ms.slots}) == len(set(slots)),
+              f"{label}: one base pipeline a distinct device")
+        host, state = mesh_vs_unsharded(ms, unsharded, hwc, refs, ticks, label, launches)
+        for s in range(n):
+            check(tp.occupancy_to_set(host.step.occupancy[s]) == _occ_set(occs[s]),
+                  f"{label}: stream {s} occupancy != rendered truth")
+        meshed[label] = (ms, state)
+        phase("mesh", f"{label} ({mesh.shape}): capture + {MESH_TICKS} ticks equal the "
+              f"unsharded pipeline and {n} single-stream pipelines on every stream; every "
+              f"stream's occupancy equals its rendered truth; B1 {len(ms.slots)} launches a "
+              f"tick on the tma kernel at N = {sm.score_matmul.last_shape[1]}")
+
+    corners2 = corners + np.array([[14, 9], [-11, 6], [8, -7], [-12, -10]])
+    g2 = BoardGeometry.from_calibration(corners2, display_size=(WIDTH, HEIGHT))
+    camera2 = SynthCamera(corners2, frame_size=(HEIGHT, WIDTH), board_px=g2.board_size)
+    odd = list(range(1, n, 2))
+    shifted = [render_all(camera2, [occs[s] for s in odd], seed) for seed in (14, 15)]
+    ref2 = camera2.render(initial_occupancy(), np.random.default_rng(16))
+    geos = [g2 if s % 2 else g for s in range(n)]
+    refs2, ticks2 = refs.copy(), []
+    refs2[odd] = ref2
+    for frames_t, m in ticks:
+        frames_t = frames_t.copy()
+        frames_t[odd] = shifted[len(ticks2) % 2]
+        ticks2.append((frames_t, m))
+    pipes = {id(geo): tp.VisionPipeline(geo, device=DEVICE) for geo in (g, g2)}
+    # Per-stream plans resample planar frames: the singles are given the same.
+    planar = [(pipes[id(geos[s])], to_planar) for s in range(n)]
+    ms = tms.MultiStreamPipeline(geos, n, mesh=dp)
+    host, _ = mesh_vs_unsharded(ms, tms.MultiStreamPipeline(geos, n, device=DEVICE), planar,
+                                refs2, ticks2, "per-stream geometry dp 8", launches)
+    for s in range(n):
+        check(tp.occupancy_to_set(host.step.occupancy[s]) == _occ_set(occs[s]),
+              f"per-stream geometry dp 8: stream {s} occupancy != rendered truth")
+    phase("mesh", f"per-stream geometry dp 8 ({n} rigs, the odd ones' corners shifted): equal "
+          f"to the unsharded per-stream pipeline and {n} single-stream pipelines of their "
+          "rigs; every stream's occupancy equals its rendered truth")
+    del ms, planar, pipes
+
+    enhanced = tp.VisionPipeline(g, with_enhancer=True, device=DEVICE)
+    ms = tms.MultiStreamPipeline(g, n, mesh=dp, with_enhancer=True)
+    mesh_vs_unsharded(ms, tms.MultiStreamPipeline(g, n, with_enhancer=True, device=DEVICE),
+                      [(enhanced, on_card)] * n, refs, ticks, "enhanced dp 8", launches,
+                      enhanced=True)
+    phase("mesh", f"enhanced dp 8: equal to the unsharded enhanced pipeline and {n} "
+          "single-stream enhanced pipelines; B2, B3 and B4 once a stream a tick")
+    del ms, enhanced
+
+    frame_sets = [np.stack(fs[:n]) for fs in sets]
+    state = unsharded.capture_reference(unsharded.init_state(), refs)
+    timed = {"unsharded": (unsharded, state), **meshed}
+    ms_tick = collections.defaultdict(list)
+
+    def meshed_counted(label):  # the unsharded pipeline's launches are not the mesh path's
+        return contextlib.nullcontext() if label == "unsharded" else counted(launches)
+
+    for label in ("unsharded", "dp 8", "dp x sp 4x2", "dp x sp 4x2", "dp 8", "unsharded"):
+        pipe, st = timed[label]
+        with meshed_counted(label):
+            wall, st = mesh_tick_ms(pipe, st, frame_sets, masks[1])
+        timed[label] = (pipe, st)
+        ms_tick[label].append(wall)
+    for label, (pipe, st) in timed.items():
+        box = [st]
+
+        def tick():
+            box[0], _ = pipe.step(box[0], frame_sets[0], s2c_masks=masks[1])
+
+        with meshed_counted(label):
+            busy = step_busy(tick, 3)
+        wall = np.mean(ms_tick[label])
+        phase("mesh", f"{label}: {wall:.3f} ms/tick "
+              f"({', '.join(f'{w:.3f}' for w in ms_tick[label])} in turns; "
+              f"{n * 1e3 / wall:.1f} frames/s), {busy_text(*busy, wall, '/tick')}; on {smi}. "
+              "On one card this is the host cost of sharding (each slot enqueues its own tick), "
+              "not a scaling figure")
+    counts = {name: launches[name] for name in COUNTERS}
+    phase("mesh", f"kernel launches on this path: {counts}")
+    return counts
+
+
+def fleet_launch(frames_path, expected_path, devices, backend, label):
+    """One fleet worker process a device of ``devices`` on a free port, each
+    waited for FLEET_TIMEOUT_S and killed past it; every rank must exit 0
+    and print FLEET-OK. Returns the wall seconds from launch to the last
+    exit."""
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (os.path.dirname(os.path.abspath(__file__)), os.environ.get("PYTHONPATH")) if p))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "chessboard_vision_tpu_torch.tools.dryrun_multigpu",
+         "--fleet-worker", str(rank), str(len(devices)), str(port), frames_path, expected_path,
+         "--device", dev, "--backend", backend],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
+        for rank, dev in enumerate(devices)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=FLEET_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        line = next((ln for ln in out.splitlines() if ln.startswith(f"FLEET-OK rank={rank}")), None)
+        check(p.returncode == 0 and line, f"{label}: rank {rank} rc {p.returncode}:\n{out[-3000:]}")
+        phase("fleet", line)
+    return wall
+
+
+def fleet_phase(smi):
+    """A two-process fleet of the port (parallel/distributed.py) over Gloo,
+    both processes on cuda:0, 4 streams of 1280x720 each (the live
+    driver's capture) on FLEET_SLOTS slots each, every rank's occupancy
+    held to its rows of this process's unsharded run; then a one-process
+    NCCL group on the card whose all_reduce of the streams' occupancy
+    counts (fleet_sum) must equal their sum."""
+    g, camera = dryrun_multigpu.rig((720, 1280), margin=100)
+    refs, steps = dryrun_multigpu.stream_frames(camera, 8, seed=20)
+    ms = tms.MultiStreamPipeline(g, 8, device=DEVICE)
+    state = ms.capture_reference(ms.init_state(), refs)
+    state, out = ms.step(state, steps)
+    occ = tms.outputs_to_numpy(out).step.occupancy
+    with tempfile.TemporaryDirectory() as tmp:
+        frames_path, expected_path = os.path.join(tmp, "fleet.npz"), os.path.join(tmp, "exp.npz")
+        dryrun_multigpu.save_fleet(frames_path, refs, steps, g, 100, FLEET_SLOTS)
+        np.savez(expected_path, occ=occ)
+        wall = fleet_launch(frames_path, expected_path, ["cuda:0", "cuda:0"], "gloo", "gloo fleet")
+        phase("fleet", f"gloo fleet: 2 processes on cuda:0, 8 streams of 1280x720, each rank's "
+              f"occupancy equal to its rows of the unsharded run; {wall:.2f} s wall from launch "
+              f"to exit (process start, CUDA init, build and capture included); on {smi}")
+        if torch.cuda.device_count() >= 2:
+            wall = fleet_launch(frames_path, expected_path, ["cuda:0", "cuda:1"], "nccl",
+                                "nccl fleet")
+            phase("fleet", f"nccl fleet: 2 processes on cuda:0 and cuda:1, {wall:.2f} s wall")
+        else:
+            phase("fleet", "NCCL across processes not run: it needs a card a process and this "
+                  f"machine has {torch.cuda.device_count()} (NCCL refuses two ranks on one card)")
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    check(pdist.init_distributed(f"localhost:{port}", 1, 0, backend="nccl"),
+          "nccl: init_distributed returned False")
+    try:
+        per_stream = out.step.occupancy.sum(dim=1)
+        total = pdist.fleet_sum(per_stream)
+        check(torch.distributed.get_backend() == "nccl" and int(total) == int(occ.sum()),
+              f"nccl: fleet_sum {int(total)} != {int(occ.sum())}")
+    finally:
+        torch.distributed.destroy_process_group()
+    phase("fleet", f"one-process NCCL group on the card: all_reduce of the 8 streams' occupancy "
+          f"counts = {int(total)}, their sum")
 
 
 # The footage phase's game: 4 start frames, then FOOTAGE_RUN frames after
@@ -2602,12 +2894,24 @@ def main():
     exact_phase(corners, camera, rng, smi)
     elapsed("exact path")
 
-    streams, b1_wide_err = streams_phase(corners, camera, g, pipe, smi)
+    streams, b1_wide_err, stream_frames = streams_phase(corners, camera, g, pipe, smi)
     missing = [k for k in COUNTERS if k != "clahe_hist" and streams[k] == 0]
     check(not missing, f"the streams path never launched {missing}")
     check(streams["clahe_hist"] == 0, "the streams path launched the histogram-only B3")
     records[0]["max_abs_err"] = max(records[0]["max_abs_err"], b1_wide_err)
     elapsed("streams path")
+
+    t0 = time.perf_counter()
+    mesh = mesh_phase(corners, g, stream_frames, smi)
+    del stream_frames
+    missing = [k for k in COUNTERS if k != "clahe_hist" and mesh[k] == 0]
+    check(not missing, f"the mesh path never launched {missing}")
+    check(mesh["clahe_hist"] == 0, "the mesh path launched the histogram-only B3")
+    phase("time", f"mesh phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    fleet_phase(smi)
+    phase("time", f"fleet phase took {time.perf_counter() - t0:.1f} s")
+    elapsed("mesh and fleet paths")
 
     footage = footage_phase(corners, camera, smi)
     missing = [k for k in COUNTERS if k != "clahe_hist" and footage[k] == 0]
@@ -2630,7 +2934,8 @@ def main():
 
     for rec in records:
         w = PATH_WRAPPER.get(rec["name"], rec["name"])
-        rec["launches"] = plain[w] + enhanced[w] + streams[w] + footage[w] + live[w] + ui[w]
+        rec["launches"] = (plain[w] + enhanced[w] + streams[w] + mesh[w] + footage[w] + live[w]
+                           + ui[w])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: rec[k] for k in keys} for rec in records]}), flush=True)

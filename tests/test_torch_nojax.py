@@ -64,7 +64,8 @@ for name in ("ops.fsm", "ops.hough", "ops.warp", "parallel", "parallel.multistre
              "session.lichess_session", "native", "tools.play_lichess", "session.renderer",
              "tools.calibration_module", "tools.calibrate_piece_detector",
              "tools.calibrate_sensitivity", "tools.calibrate_colors", "tools.enhance_demo",
-             "reference", "reference.replay_session"):
+             "reference", "reference.replay_session", "parallel.mesh", "parallel.distributed",
+             "tools.dryrun_multigpu"):
     assert port.__name__ + "." + name in names, name
 
 from chessboard_vision_tpu_torch import geometry as geo
@@ -97,6 +98,15 @@ state, out = ms.step(state, np.stack([cam.render(occ, rng) for _ in range(2)]))
 out = multi_to_numpy(out)
 for i in range(2):
     assert occupancy_to_set(out.step.occupancy[i]) == truth, i
+from chessboard_vision_tpu_torch.parallel import make_mesh
+meshed = MultiStreamPipeline(g, n_streams=2, mesh=make_mesh(2, ("data", "space"), (1, 2),
+                                                            devices=["cpu"] * 2),
+                             hough_backend="conv")
+state = meshed.capture_reference(meshed.init_state(), np.stack([cam.render(occ, rng)] * 2))
+state, mout = meshed.step(state, np.stack([cam.render(occ, rng) for _ in range(2)]))
+mout = multi_to_numpy(mout)
+for i in range(2):
+    assert occupancy_to_set(mout.step.occupancy[i]) == truth, i
 from chessboard_vision_tpu_torch import api
 from chessboard_vision_tpu_torch.rules import chess
 from chessboard_vision_tpu_torch.tools import process_video
