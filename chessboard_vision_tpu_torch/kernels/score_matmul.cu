@@ -5,7 +5,7 @@
 // basis: (M, K) bf16 row-major -- the ring kernels unrolled over the union
 //        of the per-square center windows (ConvHoughPlan.basis).
 // pf:    (N, K) bf16 row-major -- the q-pooled cos-2theta planes, one row
-//        per square (N = 64 for one stream).
+//        per square (N = 64 for one stream, streams * 64 for N streams).
 // out:   (M, N) f32 row-major -- square axis last, like the TPU kernel.
 //
 // Replaces chessboard_vision_tpu/ops/hough_conv.py::_score_matmul_pallas
@@ -15,51 +15,58 @@
 // 45.9 MB and pf is (64, 3200), so the product is 2.9 GFLOP against ~46 MB
 // of traffic (~64 FLOP/byte), below the bf16 ridge (~295 FLOP/byte): the
 // floor is streaming the basis once from device memory, ~14 us at
-// 3.35 TB/s. The kernel has to keep loads in flight on every SM all the
-// time and hide the tensor-core work behind them.
+// 3.35 TB/s. At N = 512 the work is bound by operations (23.7 us). At the
+// 720p plans (M 2048 or 3840, K 1256) the bound (1.7-3.2 us) is below a
+// launch's fixed latency.
 //
-// Design (score_matmul_tma_kernel, taken when K % 8 == 0 and both operands
-// are 16-byte aligned, which TMA needs):
-// - Each CTA owns a 64-row x 64-column output tile and walks all of K:
-//   7168 rows give 112 CTAs, one wave on the 132 SMs, each streaming 410 KB
-//   of the basis once.
-// - One producer lane keeps a ring of 8 shared-memory stages full with TMA
-//   (cp.async.bulk.tensor) loads of a 64 x 64 basis tile and a 64 x 64 pf
-//   tile, each 64 bf16 = 128 bytes wide in the 128-byte swizzle that the
-//   wgmma descriptors read: 128 KB in flight per SM. mbarriers carry
-//   "full" (transaction bytes) and "empty" (consumer done) between the
-//   producer and the consumer.
-// - One consumer warpgroup issues wgmma.mma_async m64n64k16 (bf16 in, f32
-//   accumulators in registers) on each stage, keeps that group in flight
-//   while it waits for the next stage, and hands a stage back once its
-//   group has retired. The stores leave from registers, two floats at once.
-// - Every score is one CTA's sum over K in order: the same from run to run
-//   (no split of K, no atomics).
+// Design (score_matmul_kernel<NT, WG>). Both operands go through TMA,
+// which needs K % 8 == 0 and 16-byte aligned operands: the card's plans
+// pad K to a multiple of 8 with zero columns (ConvHoughPlan.build's
+// k_align), and the wrapper raises on anything else.
+// - A CTA owns WG 64-row blocks (WG = 1, 2) and NT 64-column sub-tiles
+//   (NT = 1..4; NT >= 2 with WG = 2) and walks all of K. One producer lane keeps a ring of
+//   shared-memory stages full with TMA (cp.async.bulk.tensor) loads of a
+//   (64 * WG) x 64 basis tile and a (64 * NT) x 64 pf tile, each row 64
+//   bf16 = 128 bytes wide in the 128-byte swizzle that the wgmma
+//   descriptors read: each basis tile serves up to 256 columns, each pf
+//   tile up to 128 rows. mbarriers carry "full" (transaction bytes) and
+//   "empty" (every consumer warpgroup done) between the producer and the
+//   consumers. The ring holds up to 8 stages within 200 KB, and no more
+//   stages than the CTA has tiles of K.
+// - Consumer warpgroup w issues wgmma.mma_async m64n(64 NT)k16 (bf16 in,
+//   f32 accumulators in registers) on its 64 rows of each stage: one
+//   instruction a 16-wide step of K for all its columns, which reads the
+//   basis rows from shared memory once instead of NT times (N = 512 took
+//   8% less time than with NT m64n64k16 on NVIDIA H100 80GB HBM3, 700 W).
+//   Each column comes out bit-equal to m64n64k16's, so a stream's columns
+//   of a wide launch are bit-equal to its own N = 64 launch. It keeps one
+//   stage's group in flight while it waits for the next stage, and hands a
+//   stage back once its group has retired.
+// - The wrapper's tile_shape takes the largest CTA tile (128 x 256 down to
+//   64 x 64) that still gives three quarters of the SMs a CTA: N = 512 is
+//   112 CTAs of 128 x 256, which read the basis a quarter and the planes
+//   half as often as 64 x 64 tiles did.
+// - Every score is the same sum in the same order from run to run, and
+//   every N takes the same sums: no split of K.
+// - Launch order: the column tile is the fastest launch index: the CTAs that read the same basis rows run side
+//   by side, and L2 serves all but the first read (with the row tile
+//   fastest, N = 512 took 122 us against 75 us on NVIDIA H100 80GB HBM3,
+//   700 W).
 // - The TMA descriptor of the basis (a constant of the plan) is encoded
-//   once per pointer and shape and cached; pf's is cached the same way
-//   (the caching allocator hands the step the same block). The encoder is
-//   reached through cudaGetDriverEntryPoint, so the library needs no
+//   once per pointer, shape and box and cached; pf's is cached the same
+//   way (the caching allocator hands the step the same block). The encoder
+//   is reached through cudaGetDriverEntryPoint, so the library needs no
 //   -lcuda. The >48 KB shared-memory opt-in is set once per device.
 // - Ragged M, N and K: TMA fills rows and columns past the edges with
-//   zeros, and the epilogue masks rows >= M and columns >= N. N of any size
-//   runs as a grid of 64-column tiles, the column tile the fastest launch
-//   index: with N = streams * 64 (the N-stream step) the CTAs of one row
-//   tile run together and the basis comes from HBM about once. With the
-//   row tile fastest, each column tile swept the whole basis again: at
-//   N = 512, 122 us against 75 us (NVIDIA H100 80GB HBM3, 700 W), the same
-//   19.0 us at N = 64. At N = 512 the work is bound by operations (23.8 us)
-//   and the kernel stays slower than torch.mm (37.6 us).
-// Measured on the card and slower at 1080p: clusters of two CTAs splitting
-// K and adding the halves through distributed shared memory, 128-row tiles
-// (56 CTAs), two consumer warpgroups on alternate stages, 4, 6 or 12
-// stages, 2-4 swizzle rows per stage, and L2 evict-first or evict-last
-// hints on the loads.
-//
-// A shape TMA cannot describe (K % 8 != 0: the 720p plan has K = 1250, or a
-// misaligned view) takes score_matmul_staged_kernel: 32 x 64 tiles staged
-// through shared memory by plain loads and multiplied with 16x16x16 bf16
-// WMMA fragments. The wrapper picks the kernel by shape and alignment and
-// reports which one ran.
+//   zeros, and the epilogue masks rows >= M and columns >= N.
+// Measured on the card and slower at 1080p, N = 64: clusters of two
+// CTAs splitting K, 128-row tiles (56 CTAs), two consumer warpgroups on
+// alternate stages, 4, 6 or 12 stages, 2-4 swizzle rows per stage, and L2
+// evict-first or evict-last hints on the loads. At the 720p plans (20
+// tiles of K), clusters of 2-3 CTAs splitting K saved at most 0.6 us at
+// N = 64 and M 2048, and were slower at N = 256 and at M 3840. At
+// N >= 512, pairs of 128-row CTAs sharing each pf tile by TMA multicast
+// (half its L2 reads) gave no gain (PERF.md section 6).
 //
 // A bf16 x bf16 product is exact in f32; the sums run in the tensor core's
 // order, so the low bits differ from a sequential f32 sum (the plain
@@ -69,26 +76,33 @@
 #include <mutex>
 
 #include <cuda.h>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 namespace {
 
-// ---------------------------------------------------------------------------
-// TMA + wgmma path
-// ---------------------------------------------------------------------------
+constexpr int BN = 64;             // columns per sub-tile: one wgmma N
+constexpr int BK = 64;             // K per stage: one 128-byte swizzle row of bf16
+constexpr int WG_ROWS = 64;        // rows per consumer warpgroup: one wgmma M
+constexpr int MAX_NT = 4;          // sub-tiles per CTA: up to 256 columns
+constexpr int MAX_WG = 2;          // consumer warpgroups per CTA: up to 128 rows
+constexpr int MAX_STAGES = 8;
+constexpr int RING_BYTES = 200 * 1024;
+constexpr int MAX_SMEM = 226 * 1024;  // dynamic shared memory a CTA may ask for
+constexpr int ACC = BN / 2;        // f32 accumulators per thread of m64n64
 
-constexpr int BM = 64;           // output rows per CTA: one wgmma M
-constexpr int BN = 64;           // output columns per tile
-constexpr int BK = 64;           // K per stage: one 128-byte swizzle row of bf16
-constexpr int STAGES = 8;
-constexpr int THREADS = 128 + 32;  // one consumer warpgroup + one producer warp
-constexpr int A_BYTES = BM * BK * 2;
-constexpr int B_BYTES = BN * BK * 2;
-constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
-constexpr int ACC = BN / 2;      // f32 accumulators per thread of m64n64
-constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 1024;  // + alignment slack
+// A CTA: WG consumer warpgroups of 64 rows each and one producer warp;
+// NT sub-tiles of 64 columns.
+template <int NT, int WG>
+struct Tile {
+  static constexpr int THREADS = 128 * WG + 32;
+  static constexpr int BM = WG_ROWS * WG;
+  static constexpr int A_BYTES = BM * BK * 2;
+  static constexpr int B_BYTES = NT * BN * BK * 2;
+  static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+  static constexpr int STAGES =
+      RING_BYTES / STAGE_BYTES < MAX_STAGES ? RING_BYTES / STAGE_BYTES : MAX_STAGES;
+  static_assert(STAGE_BYTES % 1024 == 0, "stages must keep the swizzle's 1024-byte period");
+};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -158,6 +172,116 @@ __device__ __forceinline__ void wgmma_64x64x16(float (&d)[ACC], uint64_t da, uin
       : "l"(da), "l"(db), "r"(1));
 }
 
+// The same product on NT sub-tiles at once: d[j] += A * B(16 x 64, the j-th
+// 64 columns), one m64n(64 NT)k16. Its accumulator registers are the NT
+// m64n64 ones in order, and each column comes out bit-equal to m64n64k16's
+// (chip_smoke checks every wide launch's columns against N = 64 launches).
+__device__ __forceinline__ void wgmma_tile(float (&d)[1][ACC], uint64_t da, uint64_t db) {
+  wgmma_64x64x16(d[0], da, db);
+}
+
+__device__ __forceinline__ void wgmma_tile(float (&d)[2][ACC], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[0][4]),
+        "+f"(d[0][5]), "+f"(d[0][6]), "+f"(d[0][7]), "+f"(d[0][8]), "+f"(d[0][9]),
+        "+f"(d[0][10]), "+f"(d[0][11]), "+f"(d[0][12]), "+f"(d[0][13]), "+f"(d[0][14]),
+        "+f"(d[0][15]), "+f"(d[0][16]), "+f"(d[0][17]), "+f"(d[0][18]), "+f"(d[0][19]),
+        "+f"(d[0][20]), "+f"(d[0][21]), "+f"(d[0][22]), "+f"(d[0][23]), "+f"(d[0][24]),
+        "+f"(d[0][25]), "+f"(d[0][26]), "+f"(d[0][27]), "+f"(d[0][28]), "+f"(d[0][29]),
+        "+f"(d[0][30]), "+f"(d[0][31]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]),
+        "+f"(d[1][3]), "+f"(d[1][4]), "+f"(d[1][5]), "+f"(d[1][6]), "+f"(d[1][7]),
+        "+f"(d[1][8]), "+f"(d[1][9]), "+f"(d[1][10]), "+f"(d[1][11]), "+f"(d[1][12]),
+        "+f"(d[1][13]), "+f"(d[1][14]), "+f"(d[1][15]), "+f"(d[1][16]), "+f"(d[1][17]),
+        "+f"(d[1][18]), "+f"(d[1][19]), "+f"(d[1][20]), "+f"(d[1][21]), "+f"(d[1][22]),
+        "+f"(d[1][23]), "+f"(d[1][24]), "+f"(d[1][25]), "+f"(d[1][26]), "+f"(d[1][27]),
+        "+f"(d[1][28]), "+f"(d[1][29]), "+f"(d[1][30]), "+f"(d[1][31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_tile(float (&d)[3][ACC], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, %96, %97, p, 1, 1, 0, 0;\n}"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[0][4]),
+        "+f"(d[0][5]), "+f"(d[0][6]), "+f"(d[0][7]), "+f"(d[0][8]), "+f"(d[0][9]),
+        "+f"(d[0][10]), "+f"(d[0][11]), "+f"(d[0][12]), "+f"(d[0][13]), "+f"(d[0][14]),
+        "+f"(d[0][15]), "+f"(d[0][16]), "+f"(d[0][17]), "+f"(d[0][18]), "+f"(d[0][19]),
+        "+f"(d[0][20]), "+f"(d[0][21]), "+f"(d[0][22]), "+f"(d[0][23]), "+f"(d[0][24]),
+        "+f"(d[0][25]), "+f"(d[0][26]), "+f"(d[0][27]), "+f"(d[0][28]), "+f"(d[0][29]),
+        "+f"(d[0][30]), "+f"(d[0][31]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]),
+        "+f"(d[1][3]), "+f"(d[1][4]), "+f"(d[1][5]), "+f"(d[1][6]), "+f"(d[1][7]),
+        "+f"(d[1][8]), "+f"(d[1][9]), "+f"(d[1][10]), "+f"(d[1][11]), "+f"(d[1][12]),
+        "+f"(d[1][13]), "+f"(d[1][14]), "+f"(d[1][15]), "+f"(d[1][16]), "+f"(d[1][17]),
+        "+f"(d[1][18]), "+f"(d[1][19]), "+f"(d[1][20]), "+f"(d[1][21]), "+f"(d[1][22]),
+        "+f"(d[1][23]), "+f"(d[1][24]), "+f"(d[1][25]), "+f"(d[1][26]), "+f"(d[1][27]),
+        "+f"(d[1][28]), "+f"(d[1][29]), "+f"(d[1][30]), "+f"(d[1][31]), "+f"(d[2][0]),
+        "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[2][4]), "+f"(d[2][5]),
+        "+f"(d[2][6]), "+f"(d[2][7]), "+f"(d[2][8]), "+f"(d[2][9]), "+f"(d[2][10]),
+        "+f"(d[2][11]), "+f"(d[2][12]), "+f"(d[2][13]), "+f"(d[2][14]), "+f"(d[2][15]),
+        "+f"(d[2][16]), "+f"(d[2][17]), "+f"(d[2][18]), "+f"(d[2][19]), "+f"(d[2][20]),
+        "+f"(d[2][21]), "+f"(d[2][22]), "+f"(d[2][23]), "+f"(d[2][24]), "+f"(d[2][25]),
+        "+f"(d[2][26]), "+f"(d[2][27]), "+f"(d[2][28]), "+f"(d[2][29]), "+f"(d[2][30]),
+        "+f"(d[2][31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_tile(float (&d)[4][ACC], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 0;\n}"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[0][4]),
+        "+f"(d[0][5]), "+f"(d[0][6]), "+f"(d[0][7]), "+f"(d[0][8]), "+f"(d[0][9]),
+        "+f"(d[0][10]), "+f"(d[0][11]), "+f"(d[0][12]), "+f"(d[0][13]), "+f"(d[0][14]),
+        "+f"(d[0][15]), "+f"(d[0][16]), "+f"(d[0][17]), "+f"(d[0][18]), "+f"(d[0][19]),
+        "+f"(d[0][20]), "+f"(d[0][21]), "+f"(d[0][22]), "+f"(d[0][23]), "+f"(d[0][24]),
+        "+f"(d[0][25]), "+f"(d[0][26]), "+f"(d[0][27]), "+f"(d[0][28]), "+f"(d[0][29]),
+        "+f"(d[0][30]), "+f"(d[0][31]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]),
+        "+f"(d[1][3]), "+f"(d[1][4]), "+f"(d[1][5]), "+f"(d[1][6]), "+f"(d[1][7]),
+        "+f"(d[1][8]), "+f"(d[1][9]), "+f"(d[1][10]), "+f"(d[1][11]), "+f"(d[1][12]),
+        "+f"(d[1][13]), "+f"(d[1][14]), "+f"(d[1][15]), "+f"(d[1][16]), "+f"(d[1][17]),
+        "+f"(d[1][18]), "+f"(d[1][19]), "+f"(d[1][20]), "+f"(d[1][21]), "+f"(d[1][22]),
+        "+f"(d[1][23]), "+f"(d[1][24]), "+f"(d[1][25]), "+f"(d[1][26]), "+f"(d[1][27]),
+        "+f"(d[1][28]), "+f"(d[1][29]), "+f"(d[1][30]), "+f"(d[1][31]), "+f"(d[2][0]),
+        "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[2][4]), "+f"(d[2][5]),
+        "+f"(d[2][6]), "+f"(d[2][7]), "+f"(d[2][8]), "+f"(d[2][9]), "+f"(d[2][10]),
+        "+f"(d[2][11]), "+f"(d[2][12]), "+f"(d[2][13]), "+f"(d[2][14]), "+f"(d[2][15]),
+        "+f"(d[2][16]), "+f"(d[2][17]), "+f"(d[2][18]), "+f"(d[2][19]), "+f"(d[2][20]),
+        "+f"(d[2][21]), "+f"(d[2][22]), "+f"(d[2][23]), "+f"(d[2][24]), "+f"(d[2][25]),
+        "+f"(d[2][26]), "+f"(d[2][27]), "+f"(d[2][28]), "+f"(d[2][29]), "+f"(d[2][30]),
+        "+f"(d[2][31]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[3][4]), "+f"(d[3][5]), "+f"(d[3][6]), "+f"(d[3][7]), "+f"(d[3][8]),
+        "+f"(d[3][9]), "+f"(d[3][10]), "+f"(d[3][11]), "+f"(d[3][12]), "+f"(d[3][13]),
+        "+f"(d[3][14]), "+f"(d[3][15]), "+f"(d[3][16]), "+f"(d[3][17]), "+f"(d[3][18]),
+        "+f"(d[3][19]), "+f"(d[3][20]), "+f"(d[3][21]), "+f"(d[3][22]), "+f"(d[3][23]),
+        "+f"(d[3][24]), "+f"(d[3][25]), "+f"(d[3][26]), "+f"(d[3][27]), "+f"(d[3][28]),
+        "+f"(d[3][29]), "+f"(d[3][30]), "+f"(d[3][31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
 // Keeps the compiler from moving accumulator reads or writes across the
 // asynchronous wgmma.
 __device__ __forceinline__ void fence_acc(float (&d)[ACC]) {
@@ -165,165 +289,114 @@ __device__ __forceinline__ void fence_acc(float (&d)[ACC]) {
   for (int i = 0; i < ACC; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-__global__ void __launch_bounds__(THREADS, 1)
-score_matmul_tma_kernel(const __grid_constant__ CUtensorMap a_map,
-                        const __grid_constant__ CUtensorMap b_map, float* __restrict__ out,
-                        int M, int N, int K) {
+// Grid: (column tiles, row tiles).
+template <int NT, int WG>
+__global__ void __launch_bounds__(Tile<NT, WG>::THREADS, 1)
+score_matmul_kernel(const __grid_constant__ CUtensorMap a_map,
+                    const __grid_constant__ CUtensorMap b_map, float* __restrict__ out, int M,
+                    int N, int K, int stages) {
+  using T = Tile<NT, WG>;
   extern __shared__ uint8_t smem_raw[];
-  __shared__ __align__(8) uint64_t full_bar[STAGES];
-  __shared__ __align__(8) uint64_t empty_bar[STAGES];
+  __shared__ __align__(8) uint64_t full_bar[MAX_STAGES];
+  __shared__ __align__(8) uint64_t empty_bar[MAX_STAGES];
   // The 128-byte swizzle repeats every 1024 bytes: stage tiles start there.
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
-  // The column tile is the fastest launch index: the CTAs that read the same
-  // basis rows run side by side, and L2 serves all but the first read.
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
+  const int n0 = blockIdx.x * (NT * BN);
+  const int m0 = blockIdx.y * T::BM;
   const int k_tiles = (K + BK - 1) / BK;
-  const int t = threadIdx.x;  // < 128: the consumer warpgroup
+  const int t = threadIdx.x;  // < 128 * WG: the consumer warpgroups
+  constexpr int PRODUCER = 128 * WG;
 
-  if (t == 128) {  // the producer lane
+  if (t == PRODUCER) {
     asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(&a_map))
                  : "memory");
     asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(&b_map))
                  : "memory");
-    for (int s = 0; s < STAGES; ++s) {
+    for (int s = 0; s < stages; ++s) {
       mbar_init(&full_bar[s], 1);
-      mbar_init(&empty_bar[s], 1);
+      mbar_init(&empty_bar[s], WG);  // one arrival a consumer warpgroup
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 
-  if (t >= 128) {  // producer warp: one lane keeps STAGES tiles in flight
-    if (t == 128) {
+  if (t >= PRODUCER) {  // producer warp: one lane keeps `stages` tiles in flight
+    if (t == PRODUCER) {
+      int s = 0;
+      uint32_t phase = 0;
       for (int kt = 0; kt < k_tiles; ++kt) {
-        const int s = kt % STAGES;
-        // Stage s last held tile kt - STAGES: wait until its consumer let go.
-        if (kt >= STAGES) mbar_wait(&empty_bar[s], (kt / STAGES - 1) & 1);
-        mbar_expect_tx(&full_bar[s], STAGE_BYTES);
-        uint8_t* dst = smem + s * STAGE_BYTES;
+        // Stage s last held the tile `stages` back: wait until its consumers let go.
+        if (kt >= stages) mbar_wait(&empty_bar[s], phase ^ 1);
+        mbar_expect_tx(&full_bar[s], T::STAGE_BYTES);
+        uint8_t* dst = smem + s * T::STAGE_BYTES;
         tma_load(dst, &a_map, kt * BK, m0, &full_bar[s]);
-        tma_load(dst + A_BYTES, &b_map, kt * BK, n0, &full_bar[s]);
+        tma_load(dst + T::A_BYTES, &b_map, kt * BK, n0, &full_bar[s]);
+        if (++s == stages) {
+          s = 0;
+          phase ^= 1;
+        }
       }
     }
-    return;
-  }
-
-  // The consumer keeps one tile's wgmma group in flight while it waits for
-  // the next tile, and hands each stage back once its group has retired.
-  float acc[ACC];
+  } else {
+    // Consumer warpgroup wg owns rows 64wg..64wg+63 of the tile. It keeps
+    // one stage's wgmma group in flight while it waits for the next stage,
+    // and hands each stage back once its group has retired. Each sub-tile's
+    // accumulators see the same wgmma sequence as a launch with one
+    // sub-tile and one warpgroup.
+    const int wg = t / 128, tw = t % 128;
+    float acc[NT][ACC];
 #pragma unroll
-  for (int i = 0; i < ACC; ++i) acc[i] = 0.0f;
-  for (int kt = 0; kt < k_tiles; ++kt) {
-    const int s = kt % STAGES;
-    mbar_wait(&full_bar[s], (kt / STAGES) & 1);
-    const uint64_t da = smem_desc(smem + s * STAGE_BYTES);
-    const uint64_t db = smem_desc(smem + s * STAGE_BYTES + A_BYTES);
-    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-    for (int k = 0; k < BK / 16; ++k)  // 16 bf16 = 32 bytes = 2 descriptor units
-      wgmma_64x64x16(acc, da + 2 * k, db + 2 * k);
-    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-    asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
-    if (kt > 0 && t == 0) mbar_arrive(&empty_bar[(kt - 1) % STAGES]);
-  }
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-  fence_acc(acc);
-
-  // m64nNk16 accumulator layout: warp w of the warpgroup holds rows
-  // 16w..16w+15; registers i, i+1 (i even) are row lane/4 + 8*((i/2)%2),
-  // columns 8*(i/4) + 2*(lane%4) and the one after it.
-  const int lane = t % 32;
-  const int row0 = m0 + (t / 32) * 16 + lane / 4;
-  const int col0 = n0 + 2 * (lane % 4);
+      for (int i = 0; i < ACC; ++i) acc[j][i] = 0.0f;
+    int s = 0, prev = -1;
+    uint32_t phase = 0;
+    for (int kt = 0; kt < k_tiles; ++kt) {
+      mbar_wait(&full_bar[s], phase);
+      uint8_t* stage = smem + s * T::STAGE_BYTES;
+      const uint64_t da = smem_desc(stage + wg * (WG_ROWS * 128));
+      const uint64_t db = smem_desc(stage + T::A_BYTES);
+      asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 #pragma unroll
-  for (int i = 0; i < ACC; i += 2) {
-    const int row = row0 + 8 * ((i / 2) % 2);
-    const int col = col0 + 8 * (i / 4);
-    if (row >= M) continue;
-    float* dst = out + static_cast<size_t>(row) * N + col;
-    if (N % 2 == 0 && col + 1 < N) {
-      *reinterpret_cast<float2*>(dst) = make_float2(acc[i], acc[i + 1]);
-    } else {
-      if (col < N) dst[0] = acc[i];
-      if (col + 1 < N) dst[1] = acc[i + 1];
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Staged path (shapes TMA cannot describe)
-// ---------------------------------------------------------------------------
-
-using namespace nvcuda;
-
-constexpr int SBM = 32;          // output rows per block
-constexpr int SBN = 64;          // output columns per block
-constexpr int SBK = 128;         // K-chunk staged per iteration
-constexpr int LDS = SBK + 8;     // staged row stride (elements): spreads banks
-constexpr int LDC = SBN + 4;     // f32 epilogue tile stride
-constexpr int STHREADS = 128;    // four warps: 2 (rows) x 2 (column halves)
-constexpr int WM = 16, WN = 16, WK = 16;
-
-// Copies rows [row0, row0 + ROWS) x cols [k0, k0 + SBK) of a (n_rows, K)
-// row-major bf16 matrix into dst, zero-filling whatever lies outside it.
-template <int ROWS>
-__device__ __forceinline__ void stage(__nv_bfloat16 (*dst)[LDS],
-                                      const __nv_bfloat16* __restrict__ src, int row0,
-                                      int n_rows, int k0, int K) {
-  for (int e = threadIdx.x; e < ROWS * SBK; e += STHREADS) {
-    const int r = e / SBK, c = e % SBK;
-    const int gr = row0 + r, gk = k0 + c;
-    dst[r][c] = (gr < n_rows && gk < K) ? src[static_cast<size_t>(gr) * K + gk]
-                                        : __float2bfloat16(0.0f);
-  }
-}
-
-__global__ void __launch_bounds__(STHREADS)
-score_matmul_staged_kernel(const __nv_bfloat16* __restrict__ a,
-                           const __nv_bfloat16* __restrict__ b, float* __restrict__ out,
-                           int M, int N, int K) {
-  __shared__ __align__(32) __nv_bfloat16 As[SBM][LDS];
-  __shared__ __align__(32) __nv_bfloat16 Bs[SBN][LDS];
-  __shared__ __align__(32) float Cs[SBM][LDC];
-
-  const int warp = threadIdx.x / 32;
-  const int wr = (warp / 2) * WM;      // warp's first row in the tile
-  const int wc = (warp % 2) * 2 * WN;  // warp's first column in the tile
-  const int m0 = blockIdx.x * SBM;
-  const int n0 = blockIdx.y * SBN;
-
-  wmma::fragment<wmma::accumulator, WM, WN, WK, float> acc[2];
-  wmma::fill_fragment(acc[0], 0.0f);
-  wmma::fill_fragment(acc[1], 0.0f);
-  wmma::fragment<wmma::matrix_a, WM, WN, WK, __nv_bfloat16, wmma::row_major> fa;
-  // pf rows are columns of the (K, N) right operand: column-major, ld LDS.
-  wmma::fragment<wmma::matrix_b, WM, WN, WK, __nv_bfloat16, wmma::col_major> fb;
-
-  for (int k0 = 0; k0 < K; k0 += SBK) {
-    stage<SBM>(As, a, m0, M, k0, K);
-    stage<SBN>(Bs, b, n0, N, k0, K);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < SBK; kk += WK) {
-      wmma::load_matrix_sync(fa, &As[wr][kk], LDS);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        wmma::load_matrix_sync(fb, &Bs[wc + j * WN][kk], LDS);
-        wmma::mma_sync(acc[j], fa, fb, acc[j]);
+      for (int k = 0; k < BK / 16; ++k)  // 16 bf16 = 32 bytes = 2 descriptor units
+        wgmma_tile(acc, da + 2 * k, db + 2 * k);
+      asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+      if (prev >= 0 && tw == 0) mbar_arrive(&empty_bar[prev]);
+      prev = s;
+      if (++s == stages) {
+        s = 0;
+        phase ^= 1;
       }
     }
-    __syncthreads();
-  }
+    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+#pragma unroll
+    for (int j = 0; j < NT; ++j) fence_acc(acc[j]);
 
-  wmma::store_matrix_sync(&Cs[wr][wc], acc[0], LDC, wmma::mem_row_major);
-  wmma::store_matrix_sync(&Cs[wr][wc + WN], acc[1], LDC, wmma::mem_row_major);
-  __syncthreads();
-  for (int e = threadIdx.x; e < SBM * SBN; e += STHREADS) {
-    const int r = e / SBN, c = e % SBN;
-    const int m = m0 + r, n = n0 + c;
-    if (m < M && n < N) out[static_cast<size_t>(m) * N + n] = Cs[r][c];
+    // m64nNk16 accumulator layout: warp w of the warpgroup holds rows
+    // 16w..16w+15; registers i, i+1 (i even) are row lane/4 + 8*((i/2)%2),
+    // columns 8*(i/4) + 2*(lane%4) and the one after it.
+    const int lane = tw % 32;
+    const int r0 = wg * WG_ROWS + (tw / 32) * 16 + lane / 4;  // and r0 + 8
+    const int c0 = 2 * (lane % 4);  // + 64j + 8(i/4)
+    const bool row_ok[2] = {m0 + r0 < M, m0 + r0 + 8 < M};
+    float* dst[2] = {out + static_cast<size_t>(m0 + r0) * N + n0 + c0,
+                     out + static_cast<size_t>(m0 + r0 + 8) * N + n0 + c0};
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int i = 0; i < ACC; i += 2) {
+        const int h = (i / 2) % 2, dc = j * BN + 8 * (i / 4);
+        if (!row_ok[h]) continue;
+        const int col = n0 + c0 + dc;
+        if (N % 2 == 0 && col + 1 < N) {
+          *reinterpret_cast<float2*>(dst[h] + dc) = make_float2(acc[j][i], acc[j][i + 1]);
+        } else {
+          if (col < N) dst[h][dc] = acc[j][i];
+          if (col + 1 < N) dst[h][dc + 1] = acc[j][i + 1];
+        }
+      }
   }
 }
 
@@ -334,6 +407,7 @@ score_matmul_staged_kernel(const __nv_bfloat16* __restrict__ a,
 // Codes below 0 are this file's own; the rest are cudaError_t.
 constexpr int ERR_NO_ENCODER = -1;    // cuTensorMapEncodeTiled not found
 constexpr int ERR_ENCODE = -2;        // the CUDA driver refused the descriptor
+constexpr int ERR_TILE = -3;          // sub-tiles or warpgroups out of range
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -354,7 +428,7 @@ std::mutex g_mutex;  // ctypes drops the GIL: calls may come from several thread
 EncodeTiled g_encode = nullptr;
 MapEntry g_cache[CACHE_SIZE];
 int g_next = 0;
-bool g_smem_set[MAX_DEVICES] = {};
+bool g_smem_set[MAX_DEVICES][MAX_NT + 1][MAX_WG + 1] = {};
 
 EncodeTiled encoder() {
   if (g_encode == nullptr) {
@@ -406,16 +480,10 @@ int tensor_map(const void* ptr, int rows, int cols, int box_rows, const CUtensor
   return 0;
 }
 
-}  // namespace
-
-// Both launchers: basis (M, K), pf (N, K) bf16 row-major on the device,
-// out (M, N) f32. Launch on `stream` and return 0, a cudaError_t of the
-// launch, or one of this file's negative codes; the caller raises on
-// anything but 0.
-
-// The TMA + wgmma kernel. Needs K % 8 == 0 and 16-byte aligned operands.
-extern "C" int cbv_score_matmul_tma(const void* basis, const void* pf, void* out, int M,
-                                    int N, int K, void* stream) {
+template <int NT, int WG>
+int launch(const void* basis, const void* pf, void* out, int M, int N, int K,
+           cudaStream_t stream) {
+  using T = Tile<NT, WG>;
   CUtensorMap a_map, b_map;
   {
     std::lock_guard<std::mutex> lock(g_mutex);
@@ -423,38 +491,55 @@ extern "C" int cbv_score_matmul_tma(const void* basis, const void* pf, void* out
     cudaError_t err = cudaGetDevice(&dev);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (dev >= MAX_DEVICES) return static_cast<int>(cudaErrorInvalidDevice);
-    if (!g_smem_set[dev]) {
-      err = cudaFuncSetAttribute(score_matmul_tma_kernel,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+    if (!g_smem_set[dev][NT][WG]) {
+      err = cudaFuncSetAttribute(score_matmul_kernel<NT, WG>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
       if (err != cudaSuccess) return static_cast<int>(err);
-      g_smem_set[dev] = true;
+      g_smem_set[dev][NT][WG] = true;
     }
     const CUtensorMap* map = nullptr;
-    int rc = tensor_map(basis, M, K, BM, &map);
+    int rc = tensor_map(basis, M, K, T::BM, &map);
     if (rc != 0) return rc;
     a_map = *map;
-    rc = tensor_map(pf, N, K, BN, &map);
+    rc = tensor_map(pf, N, K, NT * BN, &map);
     if (rc != 0) return rc;
     b_map = *map;
   }
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  score_matmul_tma_kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
-      a_map, b_map, static_cast<float*>(out), M, N, K);
+  // No more stages than the CTA has tiles of K.
+  const int k_tiles = (K + BK - 1) / BK;
+  const int stages = k_tiles < T::STAGES ? (k_tiles > 0 ? k_tiles : 1) : T::STAGES;
+  const int smem = stages * T::STAGE_BYTES + 1024;  // + alignment slack
+  const dim3 grid((N + NT * BN - 1) / (NT * BN), (M + T::BM - 1) / T::BM);
+  score_matmul_kernel<NT, WG><<<grid, T::THREADS, smem, stream>>>(
+      a_map, b_map, static_cast<float*>(out), M, N, K, stages);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The staged WMMA kernel: any K, any alignment of a bf16 tensor.
-extern "C" int cbv_score_matmul_staged(const void* basis, const void* pf, void* out, int M,
-                                       int N, int K, void* stream) {
-  const dim3 grid((M + SBM - 1) / SBM, (N + SBN - 1) / SBN);
-  score_matmul_staged_kernel<<<grid, STHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(basis), static_cast<const __nv_bfloat16*>(pf),
-      static_cast<float*>(out), M, N, K);
-  return static_cast<int>(cudaGetLastError());
+}  // namespace
+
+// basis (M, K), pf (N, K) bf16 row-major on the device, K % 8 == 0 and both
+// 16-byte aligned; out (M, N) f32. A CTA covers `subtiles` (1..4) 64-column
+// sub-tiles and `warpgroups` 64-row blocks (1, or 2 with 2..4 sub-tiles).
+// Launches on `stream` and returns 0, a cudaError_t of the launch, or one
+// of this file's negative codes; the caller raises on anything but 0.
+extern "C" int cbv_score_matmul(const void* basis, const void* pf, void* out, int M, int N,
+                                int K, int subtiles, int warpgroups, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (warpgroups * 8 + subtiles) {
+    case 8 + 1: return launch<1, 1>(basis, pf, out, M, N, K, s);
+    case 8 + 2: return launch<2, 1>(basis, pf, out, M, N, K, s);
+    case 8 + 3: return launch<3, 1>(basis, pf, out, M, N, K, s);
+    case 8 + 4: return launch<4, 1>(basis, pf, out, M, N, K, s);
+    case 16 + 2: return launch<2, 2>(basis, pf, out, M, N, K, s);
+    case 16 + 3: return launch<3, 2>(basis, pf, out, M, N, K, s);
+    case 16 + 4: return launch<4, 2>(basis, pf, out, M, N, K, s);
+    default: return ERR_TILE;
+  }
 }
 
 extern "C" const char* cbv_cuda_error_string(int code) {
   if (code == ERR_NO_ENCODER) return "cuTensorMapEncodeTiled not found in the CUDA driver";
   if (code == ERR_ENCODE) return "cuTensorMapEncodeTiled refused the operand";
+  if (code == ERR_TILE) return "sub-tiles must be 1..4 with 1 warpgroup, 2..4 with 2";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -2,14 +2,18 @@
 
 Counterpart of chessboard_vision_tpu.ops.hough_conv (see its module doc for
 the cos(2*theta) ring-correlation derivation). ``ConvHoughPlan.build`` is
-the JAX package's numpy plan builder, unchanged. ``find_circle`` proposes
-one (center, radius) per square with the score matmul, which runs the
-hand-written CUDA kernel (kernels/score_matmul.cu) on CUDA tensors, and
+the JAX package's numpy plan builder, unchanged but for ``k_align``: on a
+CUDA device the basis's K is padded with zero columns to a multiple of 8,
+the row stride TMA needs, and ``edge_planes`` gives the planes the same
+zero tail (on the CPU the plan keeps the JAX package's K). ``find_circle``
+proposes one (center, radius) per square with the score matmul, which runs
+the hand-written CUDA kernel (kernels/score_matmul.cu) on CUDA tensors, and
 verifies it with cv2-semantics ray votes.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -56,9 +60,10 @@ class ConvHoughPlan(NamedTuple):
     win_offset_y: torch.Tensor  # (64,) i32 window top in square coords
     win_offset_x: torch.Tensor  # (64,) i32
     win_mask: torch.Tensor  # (Wy, Wx, 64) bool — centers within 30% of center
-    basis: torch.Tensor  # (Mq, 2*Hq*Wq) bf16 — ring kernels unrolled over
-    #   the union of the per-square center windows, row-pruned to the
-    #   (r, y, x) cells some square accepts, padded to _SCORE_MBLOCK rows
+    basis: torch.Tensor  # (Mq, 2*Hq*Wq + zero columns up to k_align) bf16 —
+    #   ring kernels unrolled over the union of the per-square center
+    #   windows, row-pruned to the (r, y, x) cells some square accepts,
+    #   padded to _SCORE_MBLOCK rows
     kvalid: torch.Tensor  # (Mq, 64) bool — kept row valid for square s
     kept_code: torch.Tensor  # (Mq,) i32 — kept row's flat (r*Yu + y)*Xu + x
 
@@ -77,10 +82,13 @@ class ConvHoughPlan(NamedTuple):
         plane_w: int = None,
         hysteresis_rounds: int = -1,
         device="cpu",
+        k_align: int = None,
     ):
         """Kernels and windows live in accumulator space (planes sum-pooled
         by ``downsample``); radii/coordinates are reported back in full
-        resolution."""
+        resolution. ``k_align`` pads the basis's K with zero columns to a
+        multiple of it (the sums do not change); by default
+        ``k_align_for(device)``: 8 on a CUDA device, else 1 (JAX's K)."""
         heights = np.asarray(heights)
         widths = np.asarray(widths)
         q = downsample
@@ -181,7 +189,9 @@ class ConvHoughPlan(NamedTuple):
         MB = _SCORE_MBLOCK
         Mq = -(-basis.shape[0] // MB) * MB
         pad_rows = Mq - basis.shape[0]
-        basis = np.pad(basis, ((0, pad_rows), (0, 0)))
+        if k_align is None:
+            k_align = k_align_for(device)
+        basis = np.pad(basis, ((0, pad_rows), (0, -basis.shape[1] % k_align)))
         kvalid = np.pad(kvalid, ((0, pad_rows), (0, 0)))
         kept_code = np.pad(kept.astype(np.int32), (0, pad_rows))
 
@@ -211,6 +221,12 @@ class ConvHoughPlan(NamedTuple):
         return plan, dims
 
 
+def k_align_for(device) -> int:
+    """The basis's K alignment a plan on ``device`` takes by default: 8 on
+    CUDA (16-byte bf16 rows, which the kernel's TMA loads need), else 1."""
+    return 8 if torch.device(device).type == "cuda" else 1
+
+
 class ConvCircle(NamedTuple):
     found: torch.Tensor  # (64,) bool
     cx: torch.Tensor  # (64,) f32
@@ -238,14 +254,26 @@ class EdgePlanes(NamedTuple):
     edges: torch.Tensor  # (64, H, W) f32 0/1 Canny edges
     gxn: torch.Tensor  # (64, H, W) f32 unit gradient x (0 where flat)
     gyn: torch.Tensor  # (64, H, W) f32 unit gradient y
-    planes_flat: torch.Tensor  # (64, 2*Hq*Wq) bf16 pooled cos-2theta planes,
-    #   the score matmul's right operand
+    planes_flat: torch.Tensor  # (64, k) bf16 pooled cos-2theta planes
+    #   (2*Hq*Wq columns, zeros after them), the score matmul's right operand
 
 
-def edge_planes(gray: torch.Tensor, dims: ConvHoughDims, param1: int = 100) -> EdgePlanes:
+@functools.lru_cache(maxsize=32)
+def _zero_tail(n: int, width: int, device: torch.device) -> torch.Tensor:
+    """A (n, width) bf16 zero block, made once per shape and device and only
+    ever read: joined in edge_planes' one cat, the planes' zero tail costs
+    no device op a step."""
+    return torch.zeros((n, width), dtype=torch.bfloat16, device=device)
+
+
+def edge_planes(
+    gray: torch.Tensor, dims: ConvHoughDims, param1: int = 100, k: int = None
+) -> EdgePlanes:
     """Canny edges, Sobel (reflect101) unit gradients, and the two
     cos-2theta planes sum-pooled to accumulator resolution, cast to bf16
-    (round-to-nearest-even) before the flatten."""
+    (round-to-nearest-even) before the flatten. ``k``, the plan basis's K
+    (default: the planes' own 2*Hq*Wq), is the width of ``planes_flat``:
+    the columns past the planes are zero."""
     n_sq = gray.shape[0]
     edges = canny(gray, max(param1 // 2, 1), param1,
                   hysteresis_rounds=dims.hysteresis_rounds)
@@ -260,13 +288,16 @@ def edge_planes(gray: torch.Tensor, dims: ConvHoughDims, param1: int = 100) -> E
     q = dims.downsample
     p_cos = e * fma(gxn, gxn, -(gyn * gyn))  # XLA:CPU's rounding of gxn²-gyn²
     p_sin = e * 2.0 * gxn * gyn
-    planes_flat = torch.cat(
-        [
-            (_pool_sum(p, q) if q > 1 else p).to(torch.bfloat16).reshape(n_sq, -1)
-            for p in (p_cos, p_sin)
-        ],
-        dim=1,
-    )
+    parts = [
+        (_pool_sum(p, q) if q > 1 else p).to(torch.bfloat16).reshape(n_sq, -1)
+        for p in (p_cos, p_sin)
+    ]
+    tail = 0 if k is None else k - 2 * parts[0].shape[1]
+    if tail < 0:
+        raise ValueError(f"edge_planes: k = {k} is below the planes' {2 * parts[0].shape[1]}")
+    if tail:
+        parts.append(_zero_tail(n_sq, tail, gray.device))
+    planes_flat = torch.cat(parts, dim=1)
     return EdgePlanes(e, gxn, gyn, planes_flat)
 
 
@@ -288,7 +319,7 @@ def find_circle(
     """
     _, H, W = gray.shape
     q = dims.downsample
-    e, gxn, gyn, planes_flat = edge_planes(gray, dims, param1)
+    e, gxn, gyn, planes_flat = edge_planes(gray, dims, param1, k=plan.basis.shape[1])
 
     score_m = score_matmul(plan.basis, planes_flat)  # (Mq, 64) f32
     flat = torch.where(plan.kvalid, score_m, -torch.inf)

@@ -16,8 +16,9 @@ the last line:
    kernel's time is the median of its launches' records, which records
    the profiler drops do not lower, or, where the profiler saw fewer than
    half of them, the median between CUDA events with the stream held
-   behind a sleep kernel; the kernel's CUDA-event time per call beside
-   it; every profiled window is padded with sleep kernels on both sides,
+   behind a sleep kernel; that held-stream time beside it, and a "FLAG"
+   line and the held time where the two disagree by more than 6 us +
+   15%; every profiled window is padded with sleep kernels on both sides,
    and a line says where it still saw fewer records than launches), with
    the least time the
    card could take (bound) and, where one exists, one PyTorch call that
@@ -36,6 +37,13 @@ the last line:
      card.
    B1's and B2's lines give their device time beside that of the kernels'
    earlier designs and the share of the bound it reaches.
+   - B1 at the 720p plans, on their real bases and the pooled planes of 4
+     rendered frames, at N = 64 and 256 (1280x720 on the live corners,
+     default and radius-extreme settings: Mq 2048 and 3840, K 1250 padded
+     with zeros to 1256 on both operands): the TMA kernel taken, each
+     stream's columns bit-equal to its N = 64 launch, two launches
+     bit-equal, tolerance and argmax as above, device time beside
+     torch.mm's, the plain version's and the bound.
    - B3 CLAHE histograms of the reflect pad with the LUTs built from them,
      one launch, on the unpadded (980, 980) Lab-L of that board, on a th < 8
      image and on a constant (980, 980) image: bit-equal to the plain
@@ -48,7 +56,9 @@ the last line:
    B2 on the rendered frame and on random u8 (bit-equal to plain; the
    frame's flat background is a best case for its color-weight lookups),
    B3 and B4 on its Lab-L, each with its device time, the profiler's
-   records a call seen, its held-stream CUDA-event time and its bound.
+   records a call seen, its held-stream CUDA-event time and its bound, B3
+   beside torch.bincount of the pad's keys (also at 720x1280 in the ui
+   phase).
 4. plain path: VisionPipeline(device="cuda") on rendered 1920x1080 frames
    of the benchmark's board layout, each handed over three ways: planar
    host arrays and HWC host arrays (the camera's layout, which the step
@@ -72,9 +82,10 @@ the last line:
    1080p frames of 16 positions (each a different first move):
    - B1 at N = 8*64 and 16*64 on the pooled planes of 8 and 16 frames:
      each stream's 64 columns bit-equal to that stream's own N = 64
-     launch, scores within tolerance of the plain version, the masked
-     first-max argmax equal on every square, the TMA kernel taken; device
-     time beside torch.mm's and the bound.
+     launch, two launches bit-equal, scores within tolerance of the plain
+     version, the masked first-max argmax equal on every square, the TMA
+     kernel taken (128 x 256 CTA tiles); device time beside torch.mm's and
+     the bound.
    - plain 8 streams: capture and two ticks (per-stream square masks and
      re-reference flags) on HWC host frames, which a shared-geometry tick
      warps by gather as the JAX package's does, equal to 8 single-stream
@@ -180,7 +191,8 @@ the last line:
      frames: one rebuild a distinct setting, the squares circled at the
      default settings equal the truth, B1 at each rebuilt plan's shape
      within tolerance of its plain version with the argmax equal (the
-     kernel it took printed: K = 1250 at 720p takes the staged WMMA one),
+     path it took printed: the 720p plans, K 1250 padded to 1256, take the
+     TMA + wgmma kernel, "tma"),
      and at each distinct plan shape its device time beside the plain
      version's, torch.mm's and the bound;
    - calibrate_sensitivity.run: blur 9 rebuilds the geometry with
@@ -526,14 +538,36 @@ def launch_ms(fn, iters):
     return float(np.median(us)) / 1e3, seen, expected
 
 
+# How far the profiler's time of a kernel may lie from its held-stream
+# CUDA-event time: held_ms also counts the gap between back-to-back
+# launches (4 us a call beside B1 and torch.mm at N = 512 and beside B3/B4,
+# NVIDIA H100 80GB HBM3), so the two agree within 6 us plus 15%.
+HELD_GAP_MS, HELD_SHARE = 0.006, 0.15
+
+
 def kernel_vs_plain_ms(kernel, plain, iters):
     """Device ms per call of the kernel (launch_ms) and of its plain version
     (device_ms), measured in turns (plain, kernel, kernel, plain), and the
-    kernel's CUDA-event ms."""
+    kernel's held-stream CUDA-event ms (held_ms, no profiler). Where the
+    profiler's time and the held one disagree by more than HELD_SHARE of
+    the held time plus HELD_GAP_MS (it once read B1 at N = 1024 as 53.7 us
+    against 74.1 by CUDA events, and B1 at N = 512 under its bound, Queue
+    C 15), a "FLAG" line says so and the held time replaces the profiler's."""
     ms = {kernel: 0.0, plain: 0.0}
     for fn in (plain, kernel, kernel, plain):
         ms[fn] += (launch_ms(fn, iters)[0] if fn is kernel else device_ms(fn, iters)) / 2
-    return ms[kernel], ms[plain], cuda_ms(kernel, iters)
+    held = held_ms(kernel, iters)
+    if abs(ms[kernel] - held) > HELD_SHARE * held + HELD_GAP_MS:
+        phase("time", f"FLAG: torch.profiler read {ms[kernel] * 1e3:.2f} us a call, "
+              f"held-stream CUDA events {held * 1e3:.2f} us: the held time instead")
+        ms[kernel] = held
+    return ms[kernel], ms[plain], held
+
+
+def b1_bound(M, N, K):
+    """B1's bound: the operands read once and the f32 scores written once,
+    against its bf16 operations."""
+    return bound(2 * M * K + 2 * N * K + 4 * M * N, 2 * M * N * K, BF16_FLOPS)
 
 
 def bound(nbytes, flops, flops_per_s):
@@ -643,22 +677,22 @@ def score_matmul_phase(pipe, frame, smi):
         phase("kernel", f"score_matmul {label}: ({a.shape[0]}, {a.shape[1]}) x ({b.shape[0]}, "
               f"{b.shape[1]}) on the {path} kernel, max_abs_err {err!r}, two launches "
               f"bit-equal, argmax equal on all {b.shape[0]} squares")
-    kernel_ms, plain_ms, event_ms = kernel_vs_plain_ms(
+    (M, K), N = basis.shape, planes.shape[0]
+    bound_ms, bound_by = b1_bound(M, N, K)
+    kernel_ms, plain_ms, held = kernel_vs_plain_ms(
         lambda: sm.score_matmul(basis, planes), lambda: sm.score_matmul_reference(basis, planes),
         200)
     library = library_mm(basis, planes)
-    library_ms = device_ms(library[1], 200)
+    library_ms, library_held = device_ms(library[1], 200), held_ms(library[1], 200)
     # The same two with the L2 cache flushed before each call: a read of
     # L2_FLUSH_BYTES leaves no basis line (and nothing dirty) in L2.
     flush = torch.ones(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=DEVICE)
     cold_ms = device_ms(lambda: sm.score_matmul(basis, planes), 50, before=flush.sum)
     library_cold_ms = device_ms(library[1], 50, before=flush.sum)
     del flush
-    (M, K), N = basis.shape, planes.shape[0]
-    bound_ms, bound_by = bound(2 * M * K + 2 * N * K + 4 * M * N, 2 * M * N * K, BF16_FLOPS)
-    phase("kernel", f"{share('score_matmul', bound_ms, kernel_ms)} (CUDA events "
-          f"{event_ms * 1e3:.1f} us), plain (cuBLAS f32) {plain_ms * 1e3:.1f} us, {library[0]} "
-          f"{library_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.1f} us ({bound_by}); L2 flushed "
+    phase("kernel", f"{share('score_matmul', bound_ms, kernel_ms)} (held-stream CUDA events "
+          f"{held * 1e3:.1f} us), plain (cuBLAS f32) {plain_ms * 1e3:.1f} us, {library[0]} "
+          f"{library_ms * 1e3:.1f} us (held-stream {library_held * 1e3:.1f} us), bound {bound_ms * 1e3:.1f} us ({bound_by}); L2 flushed "
           f"before each call: kernel {cold_ms * 1e3:.1f} us, library {library_cold_ms * 1e3:.1f}"
           f" us; on {smi}")
     return dict(name="score_matmul", route="cuda",
@@ -666,6 +700,87 @@ def score_matmul_phase(pipe, frame, smi):
                 replaces="chessboard_vision_tpu/ops/hough_conv.py:53",
                 max_abs_err=max_err, ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=library_ms)
+
+
+def b1_plans_phase(smi):
+    """B1 at the 720p plans (default and the radius extremes, K 1250 padded
+    to 1256 with zero columns on both operands), each at N = 64 and 256
+    (the pooled planes of 4 rendered frames, as the fleet's 4 streams at
+    720p hand them over): the TMA kernel taken, every stream's columns
+    bit-equal to its own N = 64 launch, two launches bit-equal, within
+    tolerance of the plain version, the masked first-max argmax equal on
+    every square; device time beside torch.mm's, the plain version's and
+    the bound."""
+    max_err = 0.0
+    cases = (("720p default", None),
+             ("720p radius extremes", {"min_radius": 5, "max_radius": 80}))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    g = BoardGeometry.from_calibration(UI_CORNERS, display_size=(UI_WIDTH, UI_HEIGHT))
+    camera = SynthCamera(UI_CORNERS, frame_size=(UI_HEIGHT, UI_WIDTH), board_px=g.board_size)
+    frames = [camera.render(initial_occupancy(), np.random.default_rng((60, i)))
+              for i in range(4)]
+    for label, settings in cases:
+        pipe = tp.VisionPipeline(g, piece_settings=settings, device=DEVICE)
+        basis, planes = b1_operands(pipe, frames, label)
+        (M, K), q = basis.shape, pipe.consts.conv_dims.downsample
+        k0 = 2 * (pipe.H // q) * (pipe.W // q)  # the JAX plan's K
+        check(K == -(-k0 // 8) * 8 and not basis[:, k0:].any() and not planes[:, k0:].any(),
+              f"{label}: basis K {K} for the planes' {k0}: not padded to 8 with zeros")
+        kvalid = pipe.consts.conv_plan.kvalid
+        own = [sm.score_matmul(basis, planes[i * 64:(i + 1) * 64]) for i in range(4)]
+        for n in (64, 256):
+            pf = planes[:n]
+            got = sm.score_matmul(basis, pf)
+            path = sm.score_matmul.last_path
+            again = sm.score_matmul(basis, pf)
+            want = sm.score_matmul_reference(basis, pf)
+            torch.cuda.synchronize()
+            check(path == "tma", f"{label} N={n}: B1 took the {path} path")
+            check(torch.equal(got, again), f"{label} N={n}: two launches differ")
+            for i in range(n // 64):
+                check(torch.equal(got[:, i * 64:(i + 1) * 64], own[i]),
+                      f"{label} N={n}: stream {i}'s columns differ from its N=64 launch")
+            torch.testing.assert_close(got, want, rtol=SCORE_RTOL, atol=SCORE_ATOL)
+            err = (got - want).abs().max().item()
+            max_err = max(max_err, err)
+            kv = kvalid.repeat(1, n // 64)
+            gi = torch.argmax(torch.where(kv, got, -torch.inf), dim=0)
+            wi = torch.argmax(torch.where(kv, want, -torch.inf), dim=0)
+            flips = (gi != wi).nonzero().flatten().tolist()
+            check(not flips, f"{label} N={n}: argmax differs from plain on squares {flips}")
+            bound_ms, bound_by = b1_bound(M, n, K)
+            kernel_ms, plain_ms, held = kernel_vs_plain_ms(
+                lambda: sm.score_matmul(basis, pf), lambda: sm.score_matmul_reference(basis, pf),
+                100)
+            library = library_mm(basis, pf)
+            library_ms, library_held = device_ms(library[1], 100), held_ms(library[1], 100)
+            wg, nt = sm.tile_shape(M, n, sms)
+            phase("kernel", f"score_matmul {label} N={n}: ({M}, {K}) x ({n}, {K}) on the {path} "
+                  f"path ({64 * wg} x {64 * nt} CTA tiles), each stream's columns bit-equal to "
+                  f"its N=64 launch, two launches bit-equal, max_abs_err {err!r}, argmax equal "
+                  f"on all {n} squares; device {kernel_ms * 1e3:.2f} us/call (held-stream CUDA "
+                  f"events {held * 1e3:.2f} us), plain (cuBLAS f32) {plain_ms * 1e3:.2f} us, "
+                  f"{library[0]} {library_ms * 1e3:.2f} us (held-stream "
+                  f"{library_held * 1e3:.2f} us), bound {bound_ms * 1e3:.2f} us ({bound_by}), "
+                  f"{bound_ms / kernel_ms:.0%} of its bound; on {smi}")
+        del pipe, basis, planes, own
+    return max_err
+
+
+def clahe_bincount(lab_l, tiles):
+    """B3's library call on a plane: one torch.bincount of tile * 256 +
+    value keys of the reflect pad (the keys built in the call)."""
+    H, W = lab_l.shape
+    th, tw = -(-H // tiles), -(-W // tiles)
+    pad = kc.reflect_pad_end(lab_l, th * tiles, tw * tiles)
+
+    def bincount():
+        ty = torch.arange(th * tiles, device=lab_l.device) // th
+        tx = torch.arange(tw * tiles, device=lab_l.device) // tw
+        keys = (ty[:, None] * tiles + tx[None, :]) * 256 + pad.long()
+        return torch.bincount(keys.reshape(-1), minlength=tiles * tiles * 256)
+
+    return bincount
 
 
 def enhancement_kernels_phase(pipe, frame, smi):
@@ -692,14 +807,14 @@ def enhancement_kernels_phase(pipe, frame, smi):
               f"{torch.equal(got, again)}")
         check(int(d.max()) == 0, f"bilateral {label}: kernel differs from plain")
         check(torch.equal(got, again), f"bilateral {label}: two launches differ")
-    kernel_ms, plain_ms, event_ms = kernel_vs_plain_ms(
+    kernel_ms, plain_ms, held = kernel_vs_plain_ms(
         lambda: kb.bilateral_planar(board), lambda: kb.bilateral_reference(board), 20)
     rand_ms = launch_ms(lambda: kb.bilateral_planar(rand), 20)[0]
     C, H, W = board.shape
     bound_ms, bound_by = bound(2 * C * H * W, BILATERAL_TAPS * BILATERAL_FLOPS_PER_TAP * H * W,
                                F32_FLOPS)
-    phase("kernel", f"{share('bilateral', bound_ms, kernel_ms)} (CUDA events "
-          f"{event_ms * 1e3:.1f} us), plain {plain_ms * 1e3:.1f} us, bound "
+    phase("kernel", f"{share('bilateral', bound_ms, kernel_ms)} (held-stream CUDA events "
+          f"{held * 1e3:.1f} us), plain {plain_ms * 1e3:.1f} us, bound "
           f"{bound_ms * 1e3:.1f} us ({bound_by}), no library call; on random u8 of the "
           f"same shape {rand_ms * 1e3:.1f} us ({bound_ms / rand_ms:.0%} of the bound); "
           f"color-weight table bit-equal to torch.exp; on {smi}")
@@ -739,15 +854,8 @@ def enhancement_kernels_phase(pipe, frame, smi):
     clip = max(int(3.0 * th * tw / 256), 1)
     Hp, Wp = th * tiles, tw * tiles
     n_lut = tiles * tiles * 256
-    pad = kc.reflect_pad_end(lab_l, Hp, Wp)
-
-    def bincount():  # the library call: one bincount of tile * 256 + value keys
-        ty = torch.arange(Hp, device=DEVICE) // th
-        tx = torch.arange(Wp, device=DEVICE) // tw
-        keys = (ty[:, None] * tiles + tx[None, :]) * 256 + pad.long()
-        return torch.bincount(keys.reshape(-1), minlength=n_lut)
-
-    kernel_ms, plain_ms, event_ms = kernel_vs_plain_ms(
+    bincount = clahe_bincount(lab_l, tiles)
+    kernel_ms, plain_ms, held = kernel_vs_plain_ms(
         lambda: kc.clahe_hist_luts(lab_l, th, tw, tiles, clip),
         lambda: kc.clahe_hist_luts_reference(lab_l, th, tw, tiles, clip), 200)
     library_ms = device_ms(bincount, 200)
@@ -758,8 +866,8 @@ def enhancement_kernels_phase(pipe, frame, smi):
     # operations: one count per padded pixel.
     bound_ms, bound_by = bound(H * W + 8 * n_lut, Hp * Wp, F32_FLOPS)
     phase("kernel", f"{share('clahe_hist', bound_ms, kernel_ms)} with its LUT epilogue (the "
-          f"earlier design counted only; CUDA events {event_ms * 1e3:.1f} us), the same kernel "
-          f"without the epilogue (clahe_hist) {hist_only_ms * 1e3:.1f} us, plain (pad + bincount "
+          f"earlier design counted only; held-stream CUDA events {held * 1e3:.1f} us), the "
+          f"same kernel without the epilogue (clahe_hist) {hist_only_ms * 1e3:.1f} us, plain (pad + bincount "
           f"+ LUT ops) {plain_ms * 1e3:.1f} us, torch.bincount of the pad's keys (keys built in "
           f"the call) {library_ms * 1e3:.1f} us, the torch LUT phase the epilogue replaced "
           f"{lut_phase_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.2f} us ({bound_by}) on {smi}")
@@ -769,14 +877,14 @@ def enhancement_kernels_phase(pipe, frame, smi):
                         max_abs_err=0, ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                         bound_by=bound_by, library_ms=library_ms))
 
-    kernel_ms, plain_ms, event_ms = kernel_vs_plain_ms(
+    kernel_ms, plain_ms, held = kernel_vs_plain_ms(
         lambda: kc.clahe_apply(lab_l, lut, th, tw, tiles),
         lambda: kc.clahe_apply_reference(lab_l, lut, th, tw, tiles), 200)
     # ~10 f32 operations a pixel: the two tile coordinates' fma, fraction
     # and weights, two blends of two terms, the column sum, the round.
     bound_ms, bound_by = bound(2 * H * W + 4 * n_lut, 10 * H * W, F32_FLOPS)
-    phase("kernel", f"{share('clahe_apply', bound_ms, kernel_ms)} (CUDA events "
-          f"{event_ms * 1e3:.1f} us), plain {plain_ms * 1e3:.1f} us, bound "
+    phase("kernel", f"{share('clahe_apply', bound_ms, kernel_ms)} (held-stream CUDA events "
+          f"{held * 1e3:.1f} us), plain {plain_ms * 1e3:.1f} us, bound "
           f"{bound_ms * 1e3:.2f} us ({bound_by}), no library call, on {smi}")
     records.append(dict(name="clahe_apply", route="cuda",
                         source="chessboard_vision_tpu_torch/kernels/clahe.cu",
@@ -1071,15 +1179,17 @@ def render_all(camera, occs, seed):
 def b1_wide_phase(basis, kvalid, planes, smi):
     """B1 at N = 8*64 and 16*64 on the pooled planes of 8 and 16 rendered
     frames: each stream's 64 columns bit-equal to its own N = 64 launch,
-    scores within tolerance of the plain version, the masked first-max
-    argmax equal on every square; device time beside the library call's
-    and the bound."""
+    two launches bit-equal, scores within tolerance of the plain version,
+    the masked first-max argmax equal on every square; device time (and
+    held-stream CUDA-event time) beside the library call's and the bound."""
     (M, K), max_err = basis.shape, 0.0
     for n in (8, 16):
         pf = planes[: n * 64]
         got = sm.score_matmul(basis, pf)
         check(sm.score_matmul.last_path == "tma",
               f"score_matmul N={n * 64}: took the {sm.score_matmul.last_path} kernel")
+        check(torch.equal(got, sm.score_matmul(basis, pf)),
+              f"score_matmul N={n * 64}: two launches differ")
         for i in range(n):
             own = sm.score_matmul(basis, pf[i * 64:(i + 1) * 64])
             check(torch.equal(got[:, i * 64:(i + 1) * 64], own),
@@ -1094,15 +1204,19 @@ def b1_wide_phase(basis, kvalid, planes, smi):
         flips = (gi != wi).nonzero().flatten().tolist()
         check(not flips, f"score_matmul N={n * 64}: argmax differs on squares {flips}")
         library = library_mm(basis, pf)
-        kernel_ms, library_ms, event_ms = kernel_vs_plain_ms(
+        bound_ms, bound_by = b1_bound(M, n * 64, K)
+        kernel_ms, library_ms, held = kernel_vs_plain_ms(
             lambda: sm.score_matmul(basis, pf), library[1], 100)
         plain_ms = device_ms(lambda: sm.score_matmul_reference(basis, pf), 100)
-        bound_ms, bound_by = bound(2 * M * K + 2 * n * 64 * K + 4 * M * n * 64,
-                                   2 * M * n * 64 * K, BF16_FLOPS)
+        library_held = held_ms(library[1], 100)
+        wg, nt = sm.tile_shape(M, n * 64, torch.cuda.get_device_properties(0)
+                               .multi_processor_count)
         phase("streams", f"score_matmul N={n * 64} ({n} streams): ({M}, {K}) x ({n * 64}, {K}) "
-              f"on the tma kernel, each stream's columns bit-equal to its N=64 launch, "
+              f"on the tma kernel ({64 * wg} x {64 * nt} CTA tiles), each stream's columns "
+              f"bit-equal to its N=64 launch, two launches bit-equal, "
               f"max_abs_err {err!r}, argmax equal on all {n * 64} squares; device "
-              f"{kernel_ms * 1e3:.1f} us/call (CUDA events {event_ms * 1e3:.1f} us), plain "
+              f"{kernel_ms * 1e3:.1f} us/call (held-stream CUDA events {held * 1e3:.1f} us, "
+              f"{library[0]} {library_held * 1e3:.1f} us), plain "
               f"(cuBLAS f32) {plain_ms * 1e3:.1f} us, {library[0]} {library_ms * 1e3:.1f} us, "
               f"bound {bound_ms * 1e3:.1f} us "
               f"({bound_by}), {bound_ms / kernel_ms:.0%} of its bound; on {smi}")
@@ -1995,10 +2109,10 @@ def whole_frame_phase(frame, smi, label="api.enhance_frame's shape", where="kern
     """B2-B4 on a whole camera frame (api.enhance_frame's 1080x1920 shape;
     the ui phase gives enhance_demo's 720x1280 one). B2 on the rendered frame
     and on random u8 (the frame's flat background is a best case for its
-    color-weight lookups), B3 and B4 on the frame's Lab-L; each line gives
-    the profiler's records a call seen (launch_ms) and the median time of a
-    call between CUDA events with the stream held (held_ms), which needs no
-    profiler."""
+    color-weight lookups), B3 and B4 on the frame's Lab-L, B3 beside
+    torch.bincount of the pad's keys; each line gives the profiler's records
+    a call seen (launch_ms) and the median time of a call between CUDA events
+    with the stream held (held_ms), which needs no profiler."""
     tiles = 8
     lit = correct_lighting(on_card(to_planar(frame)))
     C, h, w = lit.shape
@@ -2025,14 +2139,17 @@ def whole_frame_phase(frame, smi, label="api.enhance_frame's shape", where="kern
          lambda: kc.clahe_apply_reference(lab_l, lut, th, tw, tiles), 100,
          bound(2 * h * w + 4 * n_lut, 10 * h * w, F32_FLOPS)),
     )
+    library = {"clahe_hist_luts": clahe_bincount(lab_l, tiles)}
     parts = []
     for name, kernel, plain, iters, b in rows:
-        ms, plain_ms, _ = kernel_vs_plain_ms(kernel, plain, iters)
+        ms, plain_ms, held = kernel_vs_plain_ms(kernel, plain, iters)
         _, seen, expected = launch_ms(kernel, iters)
+        lib = (f"; torch.bincount of the pad's keys {device_ms(library[name], iters) * 1e3:.1f}"
+               if name in library else "")
         parts.append(f"{name} {ms * 1e3:.1f} ({seen:.2f} records a call seen of {expected:.2f} "
                      f"launches, padded window; held-stream "
-                     f"CUDA events {held_ms(kernel, iters) * 1e3:.1f}; plain "
-                     f"{plain_ms * 1e3:.1f}, bound "
+                     f"CUDA events {held * 1e3:.1f}; plain "
+                     f"{plain_ms * 1e3:.1f}{lib}, bound "
                      f"{b[0] * 1e3:.2f} {b[1]}, {b[0] / ms:.0%} of it)")
     phase(where, f"whole {h}x{w} frame ({label}; tiles {th}x{tw}), device "
           "us/call vs plain and bound: " + "; ".join(parts) + f"; on {smi}")
@@ -2547,26 +2664,35 @@ def ui_renders(camera, occ, seed, n=UI_RENDERS, **kw):
     return [camera.render(occ, np.random.default_rng((seed, i)), **kw) for i in range(n)]
 
 
-def b1_at_plan(pipe, frame, label, timed=True):
-    """B1 on the inputs one step of ``pipe`` hands it (captured on the way
-    in), against its plain version: within tolerance, the masked first-max
-    argmax equal; the kernel it took and the shape; with ``timed``, its
-    device time beside the plain version's, the library call's and the
-    bound. Launches made here are the comparison's, outside any counted
-    window."""
+def b1_operands(pipe, frames, label):
+    """B1's operands as steps of ``pipe`` hand them over (captured on the
+    way in): the plan's basis and the pooled planes of every frame, one
+    step a frame, stacked (N = 64 a frame)."""
     from chessboard_vision_tpu_torch.ops import hough_conv
 
     seen = []
     real = hough_conv.score_matmul
     hough_conv.score_matmul = lambda a, b: seen.append((a, b)) or real(a, b)
     try:
-        pipe.step(pipe.init_state(), frame)
+        for frame in frames:
+            pipe.step(pipe.init_state(), frame)
     finally:
         hough_conv.score_matmul = real
-    check(len(seen) == 1, f"{label}: {len(seen)} B1 calls in one step")
-    basis, planes = seen[0]
+    check(len(seen) == len(frames), f"{label}: {len(seen)} B1 calls in {len(frames)} steps")
+    return seen[0][0], torch.cat([b for _, b in seen])
+
+
+def b1_at_plan(pipe, frame, label, timed=True):
+    """B1 on the inputs one step of ``pipe`` hands it, against its plain
+    version: within tolerance, the masked first-max argmax equal; the
+    kernel's path (the TMA kernel) and the shape; with ``timed``, its
+    device time beside the plain version's, the library call's and the
+    bound. Launches made here are the comparison's, outside any counted
+    window."""
+    basis, planes = b1_operands(pipe, [frame], label)
     got = sm.score_matmul(basis, planes)
     path, shape = sm.score_matmul.last_path, sm.score_matmul.last_shape
+    check(path == "tma", f"{label}: B1 took the {path} path at {shape}")
     want = sm.score_matmul_reference(basis, planes)
     torch.testing.assert_close(got, want, rtol=SCORE_RTOL, atol=SCORE_ATOL)
     kvalid = pipe.consts.conv_plan.kvalid
@@ -2578,13 +2704,13 @@ def b1_at_plan(pipe, frame, label, timed=True):
     line = f"B1 (M, N, K) {shape} on the {path} kernel, max_abs_err {err!r}, argmax equal"
     if not timed:
         return err, line
+    (M, K), N = basis.shape, planes.shape[0]
+    bound_ms, bound_by = b1_bound(M, N, K)
     kernel_ms, plain_ms, _ = kernel_vs_plain_ms(lambda: sm.score_matmul(basis, planes),
                                                 lambda: sm.score_matmul_reference(basis, planes),
                                                 100)
     library = library_mm(basis, planes)
     library_ms = device_ms(library[1], 100)
-    (M, K), N = basis.shape, planes.shape[0]
-    bound_ms, bound_by = bound(2 * M * K + 2 * N * K + 4 * M * N, 2 * M * N * K, BF16_FLOPS)
     return err, (f"{line}, device {kernel_ms * 1e3:.1f} us/call, plain (cuBLAS f32) "
                  f"{plain_ms * 1e3:.1f} us, {library[0]} {library_ms * 1e3:.1f} us, bound "
                  f"{bound_ms * 1e3:.2f} us ({bound_by})")
@@ -2870,6 +2996,7 @@ def main():
           f"{pipe._tile_dims.q_rows}x{pipe._tile_dims.q_cols}")
     frame = camera.render(initial_occupancy(), rng)
     records = [score_matmul_phase(pipe, frame, smi)]
+    records[0]["max_abs_err"] = max(records[0]["max_abs_err"], b1_plans_phase(smi))
     records += enhancement_kernels_phase(pipe, frame, smi)
     whole_frame_phase(frame, smi)
     elapsed("kernels")

@@ -24,6 +24,8 @@ from chessboard_vision_tpu.ops.static_resample import to_planar
 from chessboard_vision_tpu_torch.kernels import score_matmul as tsm
 from chessboard_vision_tpu_torch.ops import hough_conv as thc
 
+from chessboard_vision_tpu_torch.tools.synth import bench_corners
+
 from fixtures import DEFAULT_CORNERS, initial_occupancy, make_board_frame, make_square
 
 # One intra-op thread: the suite runs in parallel worker processes, and
@@ -65,15 +67,16 @@ def test_score_matmul_reference_vs_pallas_interpret(m, k, monkeypatch):
     np.testing.assert_allclose(got, want, rtol=SCORE_RTOL, atol=SCORE_ATOL)
 
 
-@pytest.fixture(scope="module")
-def squares():
-    """Preprocessed (64, 77, 77) squares of a rendered 1280x720 frame and
-    the pipeline's conv plan for that geometry."""
-    rng = np.random.default_rng(30)
-    g = geo.BoardGeometry.from_calibration(DEFAULT_CORNERS)
+def _board_squares(seed, corners=DEFAULT_CORNERS, frame_size=(720, 1280)):
+    """Preprocessed (64, H, W) squares of a rendered frame, the square
+    heights and widths, and the pipeline's conv plan arguments for that
+    geometry."""
+    rng = np.random.default_rng(seed)
+    h, w = frame_size
+    g = geo.BoardGeometry.from_calibration(corners, display_size=(w, h))
     occ = initial_occupancy()
     occ[3, 1], occ[3, 3] = False, True
-    planar = jnp.asarray(to_planar(make_board_frame(occ, rng)))
+    planar = jnp.asarray(to_planar(make_board_frame(occ, rng, corners, frame_size)))
     qx, qy = g.square_query_coords()
     plan, dims = jmr.build_plan(qx, qy, g.src_h, g.src_w)
     padded = jax.jit(lambda x, p: jmr.resample_gray_u8(jcolor.planar_bgr2gray(x), p, dims))(planar, plan)
@@ -82,6 +85,13 @@ def squares():
     H, W = gray.shape[1:]
     kw = dict(plane_h=H, plane_w=W, hysteresis_rounds=2)
     return gray, s.heights, s.widths, kw
+
+
+@pytest.fixture(scope="module")
+def squares():
+    """Preprocessed (64, 77, 77) squares of a rendered 1280x720 frame and
+    the pipeline's conv plan for that geometry."""
+    return _board_squares(30)
 
 
 def test_score_matmul_reference_vs_xla_dot(squares):
@@ -167,12 +177,111 @@ def test_score_matmul_cpu_takes_the_plain_version():
 
 
 def test_score_matmul_kernel_choice_by_shape_and_alignment():
-    """The TMA kernel needs K % 8 == 0 (16-byte rows) and 16-byte aligned
-    operands; anything else goes to the staged kernel."""
+    """The kernel reads both operands through TMA: K % 8 == 0 (16-byte
+    rows) and 16-byte aligned operands pass, anything else is refused (no
+    kernel takes it). The 1080p plan and the 720p plans' padded K = 1256
+    take the one TMA kernel; its CTA tile grows with N where the rows leave
+    the SMs room."""
     a = torch.zeros(128, 3200, dtype=torch.bfloat16)
     b = torch.zeros(64, 3200, dtype=torch.bfloat16)
-    assert tsm.uses_tma(a, b)
-    assert not tsm.uses_tma(a[:, :1250].contiguous(), b[:, :1250].contiguous())
+    tsm.check_tma(a, b)
+    tsm.check_tma(a[:, :1256].contiguous(), b[:, :1256].contiguous())
+    with pytest.raises(ValueError, match="k_align=8"):
+        tsm.check_tma(a[:, :1250].contiguous(), b[:, :1250].contiguous())
     shifted = torch.zeros(128 * 64 + 1, dtype=torch.bfloat16)[1:].view(128, 64)
     assert shifted.data_ptr() % 16 != 0
-    assert not tsm.uses_tma(shifted, b[:, :64].contiguous())
+    with pytest.raises(ValueError, match="basis is not 16-byte aligned"):
+        tsm.check_tma(shifted, b[:, :64].contiguous())
+    # (64-row warpgroups, 64-column sub-tiles) a CTA at 1080p, by N
+    shapes = {64: (1, 1), 40: (1, 1), 128: (1, 2), 256: (2, 2), 320: (2, 3), 512: (2, 4),
+              1024: (2, 4)}
+    for n, shape in shapes.items():
+        assert tsm.tile_shape(7168, n, 132) == shape, n
+    assert tsm.tile_shape(2048, 64, 132) == (1, 1)  # 720p: too few rows for more
+    assert tsm.tile_shape(2048, 256, 132) == (1, 2)
+    assert tsm.tile_shape(3840, 256, 132) == (1, 2)
+    assert tsm.tile_shape(100_000, 64, 132) == (1, 1)  # N <= 64: one warpgroup always
+
+
+# The (warpgroups, sub-tiles) that score_matmul.cu instantiates.
+KERNEL_TILES = {(1, 1), (1, 2), (1, 3), (1, 4), (2, 2), (2, 3), (2, 4)}
+
+
+@pytest.mark.parametrize("n", [64, 256, 512, 1024])
+def test_score_matmul_tile_shape_is_a_kernel_tile(n):
+    """At every plan's M and a range of N around n, tile_shape gives a tile
+    the kernel instantiates; its column tiles cover N with no empty tile;
+    and it is the largest of the candidates that gives three quarters of
+    the SMs a CTA, or the smallest. Every CTA walks all of K whatever the
+    tile, so N changes no score's bits (the card tests check it)."""
+    sms = 132
+    for m in (1024, 2048, 3840, 7168):
+        for width in (n - 24, n, n + 40):
+            wg, nt = tsm.tile_shape(m, width, sms)
+            assert (wg, nt) in KERNEL_TILES, (m, width)
+            subtiles = -(-width // 64)
+            tiles = -(-subtiles // nt)
+            assert (tiles - 1) * nt < subtiles <= tiles * nt, (m, width)
+            if subtiles == 1:
+                assert (wg, nt) == (1, 1)
+                continue
+
+            def fills(wg, nt):
+                return 4 * -(-m // (64 * wg)) * -(-subtiles // nt) >= 3 * sms
+
+            # each candidate as it applies to N: its sub-tiles spread evenly
+            # over the fewest column tiles
+            widths = {-(-subtiles // -(-subtiles // c)) for c in (4, 2)}
+            larger = [(w, t) for w in (2, 1) for t in widths if w * t > wg * nt]
+            if fills(wg, nt):
+                assert not any(fills(*c) for c in larger), (m, width)
+            else:  # none fills the card: the smallest
+                assert wg == 1 and nt <= 2 and not any(fills(*c) for c in larger), (m, width)
+    assert tsm.tile_shape(7168, n, sms)[0] == (1 if n == 64 else 2)
+
+
+def test_k_align_follows_the_device():
+    """Plans on the card pad K to a multiple of 8; CPU plans keep JAX's K."""
+    assert thc.k_align_for("cuda") == thc.k_align_for(torch.device("cuda", 1)) == 8
+    assert thc.k_align_for("cpu") == 1
+
+
+@pytest.fixture(scope="module")
+def squares_1080p():
+    """Preprocessed squares of a rendered 1920x1080 frame on the benchmark's
+    board layout, and the pipeline's conv plan arguments."""
+    return _board_squares(31, bench_corners(1080, 1920), (1080, 1920))
+
+
+@pytest.mark.parametrize("size", ["720p", "1080p"])
+def test_padded_plan_find_circle_equals_unpadded_and_jax(size, squares, squares_1080p):
+    """A plan padded to k_align = 8 (what the card builds) has zero basis
+    columns after JAX's K and planes_flat the same zero tail; its circles
+    equal the unpadded plan's and the JAX find_circle's (found, votes,
+    centers, radii exactly; scores within the matmul tolerance)."""
+    gray, heights, widths, kw = squares if size == "720p" else squares_1080p
+    jplan, jdims = jhc.ConvHoughPlan.build(heights, widths, **kw)
+    plan, dims = thc.ConvHoughPlan.build(heights, widths, **kw)
+    padded, pdims = thc.ConvHoughPlan.build(heights, widths, k_align=8, **kw)
+    k = plan.basis.shape[1]
+    assert k == jplan.basis.shape[1] == {"720p": 1250, "1080p": 3200}[size]
+    assert padded.basis.shape == (plan.basis.shape[0], -(-k // 8) * 8)
+    assert torch.equal(padded.basis[:, :k], plan.basis)
+    assert not padded.basis[:, k:].any()
+    assert pdims == dims
+    for f in plan._fields:
+        if f != "basis":
+            assert torch.equal(getattr(padded, f), getattr(plan, f)), f
+    g = torch.as_tensor(np.array(gray))
+    pf = thc.edge_planes(g, pdims, k=padded.basis.shape[1]).planes_flat
+    assert torch.equal(pf[:, :k], thc.edge_planes(g, dims).planes_flat)
+    assert not pf[:, k:].any()
+    tc = thc.find_circle(g, padded, pdims)
+    _assert_circles_equal(tc, jhc.find_circle(jnp.asarray(gray), jplan, jdims))
+    unpadded = thc.find_circle(g, plan, dims)
+    for f in ("found", "cx", "cy", "radius", "votes"):
+        assert torch.equal(getattr(tc, f), getattr(unpadded, f)), f
+    torch.testing.assert_close(tc.score, unpadded.score, rtol=SCORE_RTOL, atol=SCORE_ATOL)
+    assert np.asarray(tc.found).sum() >= 20  # the board's pieces are found
+    with pytest.raises(ValueError, match="below"):
+        thc.edge_planes(g, dims, k=k - 2)

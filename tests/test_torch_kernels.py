@@ -23,8 +23,11 @@ from chessboard_vision_tpu_torch.tools.synth import SynthCamera, bench_corners, 
 # bf16 products summed in f32 in another order: the tolerance of the JAX
 # package's Pallas-vs-dot test (tests/test_hough_conv.py).
 SCORE_RTOL, SCORE_ATOL = 2e-4, 2e-3
-# The Hough basis at 1080p: (Mq, K) of the conv plan.
+# The Hough basis at 1080p: (Mq, K) of the conv plan; at 720p the card's
+# plans pad K = 1250 to 1256, with Mq 2048 (3840 at the radius extremes).
 M_1080P, K_1080P = 7168, 3200
+K_720P = 1256
+PLANS = [(M_1080P, K_1080P), (2048, K_720P), (3840, K_720P)]
 
 pytestmark = pytest.mark.cuda
 
@@ -36,10 +39,11 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("m,k", [(512, 384), (2048, 1250), (7168, 3200), (100, 37), (33, 8)])
+@pytest.mark.parametrize("m,k", [(512, 384), (2048, 1256), (3840, 1256), (7168, 3200), (100, 40),
+                                 (33, 8)])
 def test_score_matmul_kernel_vs_plain(cuda, m, k):
     """The kernel vs the plain version, including K not a multiple of the
-    kernel's K-chunk (or of 8: the scalar staging path) and a ragged M."""
+    kernel's 64-wide K tile and a ragged M."""
     g = torch.Generator(device=cuda).manual_seed(m + k)
     a = torch.randn(m, k, device=cuda, generator=g).to(torch.bfloat16)
     b = torch.randn(64, k, device=cuda, generator=g).to(torch.bfloat16)
@@ -51,42 +55,54 @@ def test_score_matmul_kernel_vs_plain(cuda, m, k):
 
 
 @pytest.mark.parametrize("m,k,n", [
-    (M_1080P, K_1080P, 128),  # two column tiles
+    (M_1080P, K_1080P, 128),  # two sub-tiles a CTA
     (M_1080P, K_1080P, 40),  # a ragged column tile
+    (M_1080P, K_1080P, 320),  # 5 sub-tiles: two column tiles of 3, the second ragged
     (1000, K_1080P, 64),  # rows not a multiple of the 64-row tile
-    (2048, 1250, 40),  # the staged kernel with a ragged column tile
+    (2048, K_720P, 40),  # the 720p plans (K padded to 1256), ragged columns
+    (2048, K_720P, 64),
+    (2048, K_720P, 256),  # the fleet workers' 4 streams at 720p
+    (3840, K_720P, 40),
+    (3840, K_720P, 64),
+    (3840, K_720P, 256),
+    (2000, K_1080P, 320),  # a ragged last row tile of a 128-row CTA
 ])
 def test_score_matmul_kernel_shapes(cuda, m, k, n):
-    """Other widths N and a ragged M on the TMA kernel (K % 8 == 0) and the
-    staged one (K % 8 != 0), against the plain version."""
+    """Other widths N, a ragged M and the 720p plans against the plain
+    version, on the TMA kernel."""
     g = torch.Generator(device=cuda).manual_seed(m + k + n)
     a = torch.randn(m, k, device=cuda, generator=g).to(torch.bfloat16)
     b = torch.randn(n, k, device=cuda, generator=g).to(torch.bfloat16)
     got = sm.score_matmul(a, b)
     torch.cuda.synchronize()
-    assert sm.score_matmul.last_path == ("tma" if k % 8 == 0 else "staged")
+    assert sm.score_matmul.last_path == "tma"
     torch.testing.assert_close(got, sm.score_matmul_reference(a, b), rtol=SCORE_RTOL, atol=SCORE_ATOL)
 
 
-def test_score_matmul_launches_are_bit_equal(cuda):
+@pytest.mark.parametrize("m,k", PLANS)
+@pytest.mark.parametrize("n", [64, 256])
+def test_score_matmul_launches_are_bit_equal(cuda, m, k, n):
     """No atomics and no split of K: two launches on the same operands give
     the same scores, bit for bit."""
     g = torch.Generator(device=cuda).manual_seed(7)
-    a = torch.randn(M_1080P, K_1080P, device=cuda, generator=g).to(torch.bfloat16)
-    b = torch.randn(64, K_1080P, device=cuda, generator=g).to(torch.bfloat16)
+    a = torch.randn(m, k, device=cuda, generator=g).to(torch.bfloat16)
+    b = torch.randn(n, k, device=cuda, generator=g).to(torch.bfloat16)
     first, second = sm.score_matmul(a, b), sm.score_matmul(a, b)
     torch.cuda.synchronize()
+    assert sm.score_matmul.last_path == "tma"
     assert torch.equal(first, second)
 
 
-@pytest.mark.parametrize("streams", [8, 16])
-def test_score_matmul_wide_n_columns_equal_their_n64_launches(cuda, streams):
+@pytest.mark.parametrize("m,k", PLANS)
+@pytest.mark.parametrize("streams", [4, 8, 16])
+def test_score_matmul_wide_n_columns_equal_their_n64_launches(cuda, m, k, streams):
     """N = streams * 64 (the N-stream step): each stream's 64 columns are
-    bit-equal to that stream's own N = 64 launch (every score is one CTA's
-    in-order sum over K), on the TMA kernel."""
+    bit-equal to that stream's own N = 64 launch (a wide wgmma rounds each
+    column as m64n64k16 does, over all of K whatever the CTA tile), at
+    1080p and at the 720p plans, up to N = 1024."""
     g = torch.Generator(device=cuda).manual_seed(streams)
-    a = torch.randn(M_1080P, K_1080P, device=cuda, generator=g).to(torch.bfloat16)
-    b = torch.randn(streams * 64, K_1080P, device=cuda, generator=g).to(torch.bfloat16)
+    a = torch.randn(m, k, device=cuda, generator=g).to(torch.bfloat16)
+    b = torch.randn(streams * 64, k, device=cuda, generator=g).to(torch.bfloat16)
     wide = sm.score_matmul(a, b)
     assert sm.score_matmul.last_path == "tma"
     for s in range(streams):
@@ -95,26 +111,29 @@ def test_score_matmul_wide_n_columns_equal_their_n64_launches(cuda, streams):
 
 
 def test_score_matmul_path_by_shape_and_alignment(cuda):
-    """The 1080p shapes take the TMA kernel; K % 8 != 0 and an operand that
-    is not 16-byte aligned take the staged one, with the same results."""
+    """The 1080p and 720p plans take the TMA kernel ("tma"); K % 8 != 0 and
+    an operand that is not 16-byte aligned are refused before any launch
+    (no kernel takes them)."""
     g = torch.Generator(device=cuda).manual_seed(8)
     b = torch.randn(64, K_1080P, device=cuda, generator=g).to(torch.bfloat16)
     a = torch.randn(M_1080P, K_1080P, device=cuda, generator=g).to(torch.bfloat16)
     before = sm.score_matmul.launches
     sm.score_matmul(a, b)
     assert sm.score_matmul.last_path == "tma" and sm.score_matmul.launches == before + 1
-    sm.score_matmul(a[:, :37].contiguous(), b[:, :37].contiguous())
-    assert sm.score_matmul.last_path == "staged"
+    sm.score_matmul(a[:2048, :K_720P].contiguous(), b[:, :K_720P].contiguous())
+    assert sm.score_matmul.last_path == "tma"
+    assert sm.score_matmul.last_shape == (2048, 64, K_720P)
+    sm.score_matmul(a[:3840, :K_720P].contiguous(), b[:, :K_720P].contiguous())
+    assert sm.score_matmul.last_path == "tma"
+    with pytest.raises(ValueError, match="k_align=8"):
+        sm.score_matmul(a[:, :1250].contiguous(), b[:, :1250].contiguous())
     # A contiguous view two bytes into its storage: TMA cannot take it.
     flat = torch.empty(256 * 64 + 1, device=cuda, dtype=torch.bfloat16)
     shifted = flat[1:].view(256, 64)
-    shifted.copy_(a[:256, :64])
     assert shifted.data_ptr() % 16 != 0
-    got = sm.score_matmul(shifted, b[:, :64].contiguous())
-    torch.cuda.synchronize()
-    assert sm.score_matmul.last_path == "staged"
-    torch.testing.assert_close(got, sm.score_matmul_reference(shifted, b[:, :64]),
-                               rtol=SCORE_RTOL, atol=SCORE_ATOL)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        sm.score_matmul(shifted, b[:, :64].contiguous())
+    assert sm.score_matmul.launches == before + 3
 
 
 def test_score_matmul_refuses_bad_inputs(cuda):
