@@ -48,6 +48,20 @@
 // table per ring of taps all measured slower: each costs registers or
 // shared memory, and so resident warps.
 //
+// Ablation variants (tools/ablate_enhanced.py, cbv_bilateral_variant):
+// extra instantiations of the same kernel with one part of the tap loop
+// taken out, so a time difference is that part's. kFull is the production
+// instantiation (cbv_bilateral); the others exist only for the tool:
+// - kNoTable: the color weight without its shared-memory table load (the
+//   weight is a float built from cd's bits by one integer op). The TPU
+//   kernel's "noexp" cut has no counterpart: this kernel has no exp (the
+//   table replaced it); this is the nearest cut, the lookup that replaced
+//   it.
+// - kSumsOnly: no products either: the sums add the neighbours and the
+//   cd-built weights as they are (the TPU kernel's "cdonly").
+// - kStageOnly: the tile staging and the output store, no tap loop (the
+//   TPU kernel's "shifts"): the data movement.
+//
 // Rounding: the TPU kernel's order is kept. For each dy the row partials
 // run over dx in order, then num += rn and den += rd; products and sums
 // are rounded separately (__fmul_rn / __fadd_rn: no contraction into FMA),
@@ -69,6 +83,8 @@ constexpr int COLS = PX + 2 * R;  // tile columns one thread reads per tap row
 constexpr int CD_LEVELS = 766;    // cd in [0, 3 * 255]
 constexpr int TABLE_LEN = 768;    // the table padded to whole 16-byte vectors
 
+enum Variant : int { kFull = 0, kNoTable = 1, kSumsOnly = 2, kStageOnly = 3 };
+
 struct SpaceWeights {
   float w[SPAN * SPAN];  // [dy][dx], exact zeros outside the disk
 };
@@ -84,6 +100,13 @@ __device__ __forceinline__ uint8_t to_u8(float num, float den) {
   return static_cast<uint8_t>(fminf(fmaxf(rintf(__fdiv_rn(num, den)), 0.f), 255.f));
 }
 
+// A float in [1, 2) built from cd's bits: the ablation variants' color
+// weight, one integer op and no load.
+__device__ __forceinline__ float cd_weight(uint32_t cd) {
+  return __uint_as_float(0x3F800000u | cd);
+}
+
+template <int V>
 __global__ void __launch_bounds__(TX * TY, 6)
 bilateral_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
                  const float* __restrict__ color_table, int H, int W, SpaceWeights sw) {
@@ -133,6 +156,20 @@ bilateral_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
   __syncthreads();
 
   const int c0 = PX * threadIdx.x;  // first tile column this thread reads
+  if constexpr (V == kStageOnly) {  // the centre pixels out, no tap loop
+    const int y = y0 + threadIdx.y;
+    if (y >= H) return;
+#pragma unroll
+    for (int p = 0; p < PX; ++p) {
+      const int x = x0 + c0 + p;
+      if (x >= W) break;
+      const size_t o = static_cast<size_t>(y) * W + x;
+      out[o] = static_cast<uint8_t>(tile[0][threadIdx.y + R][c0 + p + R]);
+      out[plane + o] = static_cast<uint8_t>(tile[1][threadIdx.y + R][c0 + p + R]);
+      out[2 * plane + o] = static_cast<uint8_t>(tile[2][threadIdx.y + R][c0 + p + R]);
+    }
+    return;
+  }
   const uint4 cq = *reinterpret_cast<const uint4*>(&packed[threadIdx.y + R][c0 + R]);
   const uint32_t center[PX] = {cq.x, cq.y, cq.z, cq.w};
   // Every sum starts from its first term: the reference's 0 + v is v
@@ -163,9 +200,19 @@ bilateral_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
       for (int dx = 0; dx < SPAN; ++dx) {
         if ((dy - R) * (dy - R) + (dx - R) * (dx - R) > R * R) continue;
         const int j = p + dx;
-        const float w = __fmul_rn(sw.w[dy * SPAN + dx], cw[__vsadu4(nw[j], center[p])]);
-        const float t0 = __fmul_rn(w, n0[j]), t1 = __fmul_rn(w, n1[j]),
-                    t2 = __fmul_rn(w, n2[j]);
+        float w, t0, t1, t2;
+        if constexpr (V == kFull) {
+          w = __fmul_rn(sw.w[dy * SPAN + dx], cw[__vsadu4(nw[j], center[p])]);
+        } else if constexpr (V == kNoTable) {
+          w = __fmul_rn(sw.w[dy * SPAN + dx], cd_weight(__vsadu4(nw[j], center[p])));
+        } else {
+          w = cd_weight(__vsadu4(nw[j], center[p]));
+        }
+        if constexpr (V == kSumsOnly) {
+          t0 = n0[j], t1 = n1[j], t2 = n2[j];
+        } else {
+          t0 = __fmul_rn(w, n0[j]), t1 = __fmul_rn(w, n1[j]), t2 = __fmul_rn(w, n2[j]);
+        }
         if (first) {
           rn0 = t0, rn1 = t1, rn2 = t2, rd = w;
           first = false;
@@ -230,9 +277,34 @@ extern "C" int cbv_bilateral(const void* in, void* out, int H, int W,
   SpaceWeights sw;
   for (int i = 0; i < SPAN * SPAN; ++i) sw.w[i] = space_weights[i];
   const dim3 grid((W + BW - 1) / BW, (H + BH - 1) / BH);
-  bilateral_kernel<<<grid, dim3(TX, TY), 0, static_cast<cudaStream_t>(stream)>>>(
+  bilateral_kernel<kFull><<<grid, dim3(TX, TY), 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(in), static_cast<uint8_t*>(out),
       static_cast<const float*>(color_table), H, W, sw);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// An ablation variant (Variant: 1 kNoTable, 2 kSumsOnly, 3 kStageOnly; 0 is
+// the production kernel) with cbv_bilateral's arguments and launch;
+// returns cudaErrorInvalidValue for an unknown variant.
+extern "C" int cbv_bilateral_variant(int variant, const void* in, void* out, int H, int W,
+                                     const float* space_weights, const void* color_table,
+                                     void* stream) {
+  SpaceWeights sw;
+  for (int i = 0; i < SPAN * SPAN; ++i) sw.w[i] = space_weights[i];
+  const dim3 grid((W + BW - 1) / BW, (H + BH - 1) / BH), block(TX, TY);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* i8 = static_cast<const uint8_t*>(in);
+  auto* o8 = static_cast<uint8_t*>(out);
+  const auto* t = static_cast<const float*>(color_table);
+  switch (variant) {
+    case kFull: bilateral_kernel<kFull><<<grid, block, 0, s>>>(i8, o8, t, H, W, sw); break;
+    case kNoTable: bilateral_kernel<kNoTable><<<grid, block, 0, s>>>(i8, o8, t, H, W, sw); break;
+    case kSumsOnly: bilateral_kernel<kSumsOnly><<<grid, block, 0, s>>>(i8, o8, t, H, W, sw); break;
+    case kStageOnly:
+      bilateral_kernel<kStageOnly><<<grid, block, 0, s>>>(i8, o8, t, H, W, sw);
+      break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -69,6 +69,21 @@
 //   kernel's weight is (1 - fx) + fx, rounded, times one term; so is this
 //   one.
 //
+// Ablation variants (tools/ablate_enhanced.py, cbv_clahe_hist_variant and
+// cbv_clahe_apply_variant): extra instantiations of the same two kernels
+// with one part taken out, so a time difference is that part's; variant 0
+// is the production instantiation (cbv_clahe_hist, cbv_clahe_apply). The
+// TPU kernels' cuts build or skip one-hot operands for the matrix unit,
+// which these kernels do not have; the nearest cuts:
+// - histogram kLoadOnly: the tile's loads without the counting (the TPU
+//   kernel's "matonly" left only its data path); kCountOnly: the shared
+//   atomics on values made from the indices, no image loads.
+// - apply kLookupOnly: the four LUT lookups summed, no blend weights (the
+//   TPU kernel's "matonly", its one-hot selection alone); kBlendOnly: the
+//   blend arithmetic on the pixel value, no LUT lookups (its "blendonly");
+//   kCopy: the image load and the store alone.
+// cbv_empty launches an empty kernel: the launch floor of both.
+//
 // What bounds them on an H100: at 1080p (980 x 980) the histogram reads
 // ~1 MB and writes 128 KB, the apply moves ~2 MB plus the 64 KB LUT set, a
 // microsecond of memory traffic or less each: both are bound by launch and
@@ -88,6 +103,9 @@ constexpr int APPLY_WARPS = 8;      // rows of an apply block at a time, a warp 
 constexpr int APPLY_ROWS = 2;       // rows a thread, APPLY_WARPS apart
 constexpr int APPLY_COLS = 128;     // columns of a block: 32 threads x 4
 constexpr unsigned FULL = 0xffffffffu;
+
+enum HistVariant : int { kHistFull = 0, kLoadOnly = 1, kCountOnly = 2 };
+enum ApplyVariant : int { kApplyFull = 0, kLookupOnly = 1, kBlendOnly = 2, kCopy = 3 };
 
 // Source coordinate of padded coordinate p on an axis of n pixels.
 __device__ __forceinline__ int reflect(int p, int n) { return p < n ? p : 2 * n - 2 - p; }
@@ -136,6 +154,7 @@ __device__ void build_lut(const int* h, float* lut, int clip, float scale) {
 // cbv_clahe_hist's kernel: block t counts tile t = ty * tiles + tx, lane l
 // of warp w reading columns 4l .. 4l+3 (128 a pass) of rows w, w + WARPS,
 // ...; then warp 0 builds the tile's LUT.
+template <int V>
 __global__ void __launch_bounds__(TILE_THREADS)
 clahe_hist_tile_kernel(const uint8_t* __restrict__ img, int H, int W, int th, int tw, int tiles,
                        int* __restrict__ hist, float* __restrict__ luts, int clip, float scale) {
@@ -145,6 +164,7 @@ clahe_hist_tile_kernel(const uint8_t* __restrict__ img, int H, int W, int th, in
   __syncthreads();
   const int t = blockIdx.x, ty = t / tiles, tx = t % tiles;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  uint32_t seen = 0;  // kLoadOnly: the loaded words, folded into one count
   for (int c0 = 4 * lane; c0 < tw; c0 += 128) {
     int col[4];  // source columns (the tile's last column past its edge)
 #pragma unroll
@@ -156,9 +176,18 @@ clahe_hist_tile_kernel(const uint8_t* __restrict__ img, int H, int W, int th, in
         w[b] = 0;
         const int r = r0 + b * WARPS;
         if (r >= th) continue;
+        if constexpr (V == kCountOnly) {  // a value from the indices, no load
+          w[b] = (static_cast<uint32_t>(r) * 0x9E3779B1u) ^ static_cast<uint32_t>(c0);
+          continue;
+        }
         const uint8_t* row = img + static_cast<size_t>(reflect(ty * th + r, H)) * W;
 #pragma unroll
         for (int k = 0; k < 4; ++k) w[b] |= static_cast<uint32_t>(__ldg(row + col[k])) << (8 * k);
+      }
+      if constexpr (V == kLoadOnly) {
+#pragma unroll
+        for (int b = 0; b < TILE_ROW_BATCH; ++b) seen ^= w[b];
+        continue;
       }
 #pragma unroll
       for (int b = 0; b < TILE_ROW_BATCH; ++b) {
@@ -169,6 +198,7 @@ clahe_hist_tile_kernel(const uint8_t* __restrict__ img, int H, int W, int th, in
       }
     }
   }
+  if constexpr (V == kLoadOnly) atomicAdd(&bins[seen & 255u], 1);
   __syncthreads();
   if (threadIdx.x < 256) hist[t * 256 + threadIdx.x] = bins[threadIdx.x];
   if (luts != nullptr && warp == 0) build_lut(bins, luts + t * 256, clip, scale);
@@ -188,7 +218,7 @@ __device__ __forceinline__ TileCoord tile_coord(int p, float inv_size, int tiles
   return {min(max(i0, 0), tiles - 1), min(max(i0 + 1, 0), tiles - 1), __fsub_rn(tf, t0)};
 }
 
-template <bool kWord>
+template <bool kWord, int V>
 __global__ void __launch_bounds__(32 * APPLY_WARPS)
 clahe_apply_kernel(const uint8_t* __restrict__ img, const float* __restrict__ luts,
                    uint8_t* __restrict__ out, int H, int W, float inv_th, float inv_tw,
@@ -233,8 +263,21 @@ clahe_apply_kernel(const uint8_t* __restrict__ img, const float* __restrict__ lu
     const float gy0 = __fsub_rn(1.0f, ry.f), gy1 = ry.f;
     uint32_t res4 = 0;
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
+    for (int k = 0; k < 4 && V != kCopy; ++k) {
       const int v = static_cast<int>((px[r] >> (8 * k)) & 255u);
+      if constexpr (V == kLookupOnly) {  // the four lookups, no weights
+        const float e = __ldg(row0 + c0[k] + v) + __ldg(row1 + c0[k] + v) +
+                        __ldg(row0 + c1[k] + v) + __ldg(row1 + c1[k] + v);
+        res4 |= static_cast<uint32_t>(e) << (8 * k);
+        continue;
+      }
+      if constexpr (V == kBlendOnly) {  // the blend on the value, no lookups
+        const float e = static_cast<float>(v);
+        const float ey = __fmaf_rn(gy0, e, __fmul_rn(gy1, e));
+        const float res = __fmaf_rn(gx1[k], ey, __fmul_rn(gx0[k], ey));
+        res4 |= static_cast<uint32_t>(fminf(fmaxf(rintf(res), 0.f), 255.f)) << (8 * k);
+        continue;
+      }
       // ey = (1 - fy) * e0 + fy * e1 for tile column c, first product fused.
       const float ey0 =
           __fmaf_rn(gy0, __ldg(row0 + c0[k] + v), __fmul_rn(gy1, __ldg(row1 + c0[k] + v)));
@@ -248,6 +291,7 @@ clahe_apply_kernel(const uint8_t* __restrict__ img, const float* __restrict__ lu
       }
       res4 |= static_cast<uint32_t>(fminf(fmaxf(rintf(res), 0.f), 255.f)) << (8 * k);
     }
+    if constexpr (V == kCopy) res4 = px[r];
     uint8_t* dst = out + static_cast<size_t>(y) * W + x0;
     if (kWord) {
       *reinterpret_cast<uint32_t*>(dst) = res4;
@@ -270,9 +314,39 @@ clahe_apply_kernel(const uint8_t* __restrict__ img, const float* __restrict__ lu
 // f32(255 / (th * tw)).
 extern "C" int cbv_clahe_hist(const void* img, int H, int W, int th, int tw, int tiles,
                               void* hist, void* luts, int clip, float scale, void* stream) {
-  clahe_hist_tile_kernel<<<tiles * tiles, TILE_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(img), H, W, th, tw, tiles, static_cast<int*>(hist),
-      static_cast<float*>(luts), clip, scale);
+  clahe_hist_tile_kernel<kHistFull>
+      <<<tiles * tiles, TILE_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const uint8_t*>(img), H, W, th, tw, tiles, static_cast<int*>(hist),
+          static_cast<float*>(luts), clip, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// An ablation variant of the histogram kernel (HistVariant: 1 kLoadOnly,
+// 2 kCountOnly; 0 is the production kernel) with cbv_clahe_hist's
+// arguments and launch; cudaErrorInvalidValue for an unknown variant.
+extern "C" int cbv_clahe_hist_variant(int variant, const void* img, int H, int W, int th,
+                                      int tw, int tiles, void* hist, void* luts, int clip,
+                                      float scale, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* in = static_cast<const uint8_t*>(img);
+  auto* h = static_cast<int*>(hist);
+  auto* l = static_cast<float*>(luts);
+  const int n = tiles * tiles;
+  switch (variant) {
+    case kHistFull:
+      clahe_hist_tile_kernel<kHistFull><<<n, TILE_THREADS, 0, s>>>(in, H, W, th, tw, tiles, h,
+                                                                   l, clip, scale);
+      break;
+    case kLoadOnly:
+      clahe_hist_tile_kernel<kLoadOnly><<<n, TILE_THREADS, 0, s>>>(in, H, W, th, tw, tiles, h,
+                                                                   l, clip, scale);
+      break;
+    case kCountOnly:
+      clahe_hist_tile_kernel<kCountOnly><<<n, TILE_THREADS, 0, s>>>(in, H, W, th, tw, tiles, h,
+                                                                    l, clip, scale);
+      break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -291,9 +365,60 @@ extern "C" int cbv_clahe_apply(const void* img, const void* luts, void* out, int
   const auto* l = static_cast<const float*>(luts);
   auto* o = static_cast<uint8_t*>(out);
   if (word)
-    clahe_apply_kernel<true><<<grid, block, 0, s>>>(in, l, o, H, W, inv_th, inv_tw, tiles);
+    clahe_apply_kernel<true, kApplyFull><<<grid, block, 0, s>>>(in, l, o, H, W, inv_th, inv_tw,
+                                                                tiles);
   else
-    clahe_apply_kernel<false><<<grid, block, 0, s>>>(in, l, o, H, W, inv_th, inv_tw, tiles);
+    clahe_apply_kernel<false, kApplyFull><<<grid, block, 0, s>>>(in, l, o, H, W, inv_th, inv_tw,
+                                                                 tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// An ablation variant of the apply kernel (ApplyVariant: 1 kLookupOnly, 2
+// kBlendOnly, 3 kCopy; 0 is the production kernel) with cbv_clahe_apply's
+// arguments, on its word path: W % 4 == 0 and 4-byte aligned planes, else
+// cudaErrorInvalidValue (so is an unknown variant).
+extern "C" int cbv_clahe_apply_variant(int variant, const void* img, const void* luts,
+                                       void* out, int H, int W, float inv_th, float inv_tw,
+                                       int tiles, void* stream) {
+  const int rows = APPLY_WARPS * APPLY_ROWS;
+  const dim3 block(32, APPLY_WARPS);
+  const dim3 grid((W + APPLY_COLS - 1) / APPLY_COLS, (H + rows - 1) / rows);
+  if (W % 4 != 0 || reinterpret_cast<uintptr_t>(img) % 4 != 0 ||
+      reinterpret_cast<uintptr_t>(out) % 4 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* in = static_cast<const uint8_t*>(img);
+  const auto* l = static_cast<const float*>(luts);
+  auto* o = static_cast<uint8_t*>(out);
+  switch (variant) {
+    case kApplyFull:
+      clahe_apply_kernel<true, kApplyFull><<<grid, block, 0, s>>>(in, l, o, H, W, inv_th,
+                                                                  inv_tw, tiles);
+      break;
+    case kLookupOnly:
+      clahe_apply_kernel<true, kLookupOnly><<<grid, block, 0, s>>>(in, l, o, H, W, inv_th,
+                                                                   inv_tw, tiles);
+      break;
+    case kBlendOnly:
+      clahe_apply_kernel<true, kBlendOnly><<<grid, block, 0, s>>>(in, l, o, H, W, inv_th,
+                                                                  inv_tw, tiles);
+      break;
+    case kCopy:
+      clahe_apply_kernel<true, kCopy><<<grid, block, 0, s>>>(in, l, o, H, W, inv_th, inv_tw,
+                                                             tiles);
+      break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+namespace {
+__global__ void empty_kernel() {}
+}  // namespace
+
+// One launch of an empty kernel (one block of one thread): the launch floor.
+extern "C" int cbv_empty(void* stream) {
+  empty_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }
 

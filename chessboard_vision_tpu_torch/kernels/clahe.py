@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from chessboard_vision_tpu_torch.kernels import load
+from chessboard_vision_tpu_torch.ops.filters import reflect101
 from chessboard_vision_tpu_torch.ops.xla_rounding import fma
 
 _lib = None
@@ -39,10 +40,9 @@ def _check_tiled(img: torch.Tensor, th: int, tw: int, tiles: int, what: str) -> 
 def reflect_pad_end(img: torch.Tensor, hp: int, wp: int) -> torch.Tensor:
     """Reflect-101 rows/cols onto the bottom and right, to (hp, wp)."""
     for ax, n in ((0, hp), (1, wp)):
-        size = img.shape[ax]
-        if n > size:
-            i = torch.arange(n, device=img.device)
-            img = img.index_select(ax, torch.where(i >= size, 2 * size - 2 - i, i))
+        if n > img.shape[ax]:
+            img = img.index_select(ax, reflect101(torch.arange(n, device=img.device),
+                                                  img.shape[ax]))
     return img
 
 

@@ -6,7 +6,9 @@ clip 3.0, 8x8 tiles on LAB-L, (2) bilateral d=9, sigma 75/75, (3) 3x3
 sharpen, (4) min-max normalize; plus ``prepare_analysis`` (gray -> 5x5
 Gaussian -> Otsu). The functions take planar (3, H, W) u8 tensors; the
 CLAHE phases and the bilateral run the port's CUDA kernels when the tensor
-is on a card and their plain versions when it is on the CPU.
+is on a card and their plain versions when it is on the CPU. The
+bilateral's ``backend`` ("auto", "kernel", "plain": ops/enhance.py) names
+one of the two explicitly, as the JAX package's Pallas-else-XLA seam does.
 """
 
 from __future__ import annotations
@@ -62,11 +64,13 @@ def apply_color_profile(planar: torch.Tensor, profile: dict) -> torch.Tensor:
     return _planar(color_ops.hsv2bgr(hsv_u8.to(torch.uint8)))
 
 
-def bilateral(planar: torch.Tensor) -> torch.Tensor:
-    """Bilateral d=9, sigma 75/75: the CUDA kernel for a tensor on a card,
-    its plain version for a tensor on the CPU (the JAX package's
-    Pallas-else-XLA backend seam has no counterpart)."""
-    return enh_ops.bilateral_planar(planar, 9, 75.0, 75.0)
+def bilateral(planar: torch.Tensor, backend: str = "auto") -> torch.Tensor:
+    """Bilateral d=9, sigma 75/75: "auto" the CUDA kernel for a tensor on a
+    card and its plain version for a tensor on the CPU, "kernel" the kernel
+    (raises off a card), "plain" the plain version on either device."""
+    if enh_ops.use_kernel(planar, backend, "bilateral"):
+        return enh_ops.bilateral_planar(planar, 9, 75.0, 75.0)
+    return enh_ops.bilateral_reference(planar, 9, 75.0, 75.0)
 
 
 def correct_lighting(planar: torch.Tensor, clahe_clip: float = 3.0,
@@ -78,13 +82,15 @@ def correct_lighting(planar: torch.Tensor, clahe_clip: float = 3.0,
 
 
 def enhance_planar(planar: torch.Tensor, profile: Optional[dict] = None,
-                   clahe_clip: float = 3.0, clahe_tiles: int = 8) -> torch.Tensor:
+                   clahe_clip: float = 3.0, clahe_tiles: int = 8,
+                   bilateral_backend: str = "auto") -> torch.Tensor:
     """The full 5-stage enhancement on a (3, H, W) u8 planar image
     (reference process_pipeline, frame_enhancer.py:161-181): color profile
-    -> CLAHE on LAB-L -> bilateral -> sharpen -> min-max normalize."""
+    -> CLAHE on LAB-L -> bilateral (on ``bilateral_backend``) -> sharpen ->
+    min-max normalize."""
     x = apply_color_profile(planar, profile or {})
     x = correct_lighting(x, clahe_clip, clahe_tiles)
-    return normalize_minmax(sharpen(bilateral(x)))
+    return normalize_minmax(sharpen(bilateral(x, bilateral_backend)))
 
 
 class ImageEnhancer:
@@ -93,12 +99,13 @@ class ImageEnhancer:
 
     def __init__(self, clahe_clip_limit: float = 3.0, tile_grid_size=(8, 8),
                  profile: Optional[dict] = None, load_profile_file: bool = False,
-                 device="cuda"):
+                 bilateral_backend: str = "auto", device="cuda"):
         self.clip = float(clahe_clip_limit)
         self.tiles = int(tile_grid_size[0])
         if profile is None and load_profile_file:
             profile = load_json_config(COLOR_PROFILE_FILE, {})
         self.profile = dict(profile) if profile else {}
+        self.bilateral_backend = bilateral_backend
         self.device = resolve_device(device, "ImageEnhancer")
 
     def _run(self, fn, frame) -> np.ndarray:
@@ -115,7 +122,7 @@ class ImageEnhancer:
         return self._run(lambda x: correct_lighting(x, self.clip, self.tiles), frame)
 
     def reduce_noise(self, frame) -> np.ndarray:
-        return self._run(bilateral, frame)
+        return self._run(lambda x: bilateral(x, self.bilateral_backend), frame)
 
     def sharpen(self, frame) -> np.ndarray:
         return self._run(sharpen, frame)
@@ -124,7 +131,13 @@ class ImageEnhancer:
         return self._run(normalize_minmax, frame)
 
     def process_pipeline(self, frame) -> np.ndarray:
-        return self._run(lambda x: enhance_planar(x, self.profile, self.clip, self.tiles), frame)
+        return self._run(self.process_planar, frame)
+
+    def process_planar(self, planar: torch.Tensor) -> torch.Tensor:
+        """The whole enhancement on a planar (3, H, W) u8 tensor, planar
+        out, on the tensor's device (the device-native entry)."""
+        return enhance_planar(planar, self.profile, self.clip, self.tiles,
+                              self.bilateral_backend)
 
     def prepare_analysis(self, frame):
         """(gray, Otsu binary of the 5x5-blurred gray), (H, W) u8 each."""

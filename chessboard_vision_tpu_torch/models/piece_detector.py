@@ -3,16 +3,22 @@
 Counterpart of chessboard_vision_tpu.models.piece_detector (reference
 piece_detector.py detect_all_pieces :348-440). All 64 squares are detected
 every call; the state semantics (which result is reported, when caches and
-references update) follow the reference exactly.
+references update) follow the reference exactly. ``PieceDetectorModel`` is
+the reference PieceDetector's host API over that state; the pipeline calls
+the functional ``detect_all``.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
+from chessboard_vision_tpu_torch.device import resolve_device
+from chessboard_vision_tpu_torch.ops import hough as hough_ops
 from chessboard_vision_tpu_torch.ops import piece as piece_ops
+from chessboard_vision_tpu_torch.ops.layout import positions_to_mask
 
 HISTORY = 5
 MIN_PRESENCE = 0.6
@@ -111,15 +117,16 @@ def detect_all(
     center_diff_threshold: float = 40.0,
     gray_flat: Optional[torch.Tensor] = None,
     hough_backend: str = "conv",
-    hough_params=None,
-    hough_bounds=None,
+    params=None,
+    bounds=None,
     use_smoothing: bool = True,
     use_delta: bool = True,
 ) -> Tuple[PieceState, DetectAllOutputs]:
     """One detect_all_pieces step. gray: (64, H, W) u8 preprocessed
     squares; gray_flat: optional (64, H*W) view of the same gray. The Hough
     backend and its constants go to ops/piece.detect_pieces:
-    conv_plan/conv_dims for 'conv', hough_params/hough_bounds for 'exact'.
+    conv_plan/conv_dims for 'conv', params/bounds (its hough_params and
+    hough_bounds) for 'exact'.
 
     ``use_delta=False`` turns the delta gate off for the squares of
     ``s2c_mask`` when ``s2c_given``: only they are detected afresh, the
@@ -142,7 +149,7 @@ def detect_all(
         gray, masks, conv_plan, conv_dims,
         hough_param1=hough_param1, hough_param2=hough_param2,
         center_diff_threshold=center_diff_threshold,
-        hough_backend=hough_backend, hough_params=hough_params, hough_bounds=hough_bounds,
+        hough_backend=hough_backend, hough_params=params, hough_bounds=bounds,
     )
 
     raw_has = torch.where(use_fresh, fresh.has_piece, state.cache_has)
@@ -198,3 +205,68 @@ def update_references(state: PieceState, gray: torch.Tensor) -> PieceState:
         has_ref=torch.ones_like(state.has_ref),
         has_cache=torch.zeros_like(state.has_cache),
     )
+
+
+class PieceDetectorModel:
+    """The reference PieceDetector's API (dict-of-squares host calls) over
+    the device state, on ``device`` (the card unless the caller asks for
+    the CPU), with the exact Hough backend, as the JAX package's model
+    (its ``detect_all`` default). ``gray`` arguments are (64, H, W) u8
+    preprocessed squares in chess-index order: a host array or a tensor."""
+
+    def __init__(self, heights, widths, settings: Optional[dict] = None, device="cuda"):
+        heights, widths = np.asarray(heights), np.asarray(widths)
+        min_ratio, max_ratio = 0.20, 0.55
+        if settings:
+            if "min_radius" in settings:
+                min_ratio = settings["min_radius"] / 100.0
+            if "max_radius" in settings:
+                max_ratio = settings["max_radius"] / 100.0
+        self.device = resolve_device(device, "PieceDetectorModel")
+        H, W = int(heights.max()), int(widths.max())
+        self.masks = piece_ops.PieceMasks.build(heights, widths, H, W, device=self.device)
+        self.params, self.bounds = hough_ops.HoughParams.from_geometry(
+            heights, widths, min_ratio=min_ratio, max_ratio=max_ratio, device=self.device)
+        self.state = init_state((64, H, W), device=self.device)
+
+    def _gray(self, gray) -> torch.Tensor:
+        return torch.as_tensor(gray, device=self.device)
+
+    def detect_all_pieces(self, gray, squares_to_check=None, use_smoothing=True,
+                          use_delta=True) -> DetectAllOutputs:
+        """One detect_all step on the model's state (``detect_all``)."""
+        given = squares_to_check is not None
+        mask = positions_to_mask(squares_to_check) if given else np.zeros(64, bool)
+        self.state, out = detect_all(
+            self.state, self._gray(gray), self.masks,
+            torch.as_tensor(mask, device=self.device), torch.tensor(given, device=self.device),
+            hough_backend="exact", params=self.params, bounds=self.bounds,
+            use_smoothing=use_smoothing, use_delta=use_delta,
+        )
+        return out
+
+    def update_references(self, gray):
+        self.state = update_references(self.state, self._gray(gray))
+
+    def calibrate_reference(self, gray):
+        """Set references AND prime the result cache from a fresh detection
+        (reference calibrate_reference, piece_detector.py:70-80)."""
+        gray = self._gray(gray)
+        fresh = piece_ops.detect_pieces(gray, self.masks, hough_backend="exact",
+                                        hough_params=self.params, hough_bounds=self.bounds)
+        self.state = self.state._replace(
+            ref_gray=gray.reshape(gray.shape[0], -1),
+            has_ref=torch.ones_like(self.state.has_ref),
+            cache_has=fresh.has_piece,
+            cache_method=fresh.method,
+            cache_conf=fresh.confidence,
+            cache_cx=fresh.center_x,
+            cache_cy=fresh.center_y,
+            cache_radius=fresh.radius,
+            has_cache=torch.ones_like(self.state.has_cache),
+        )
+
+    def get_occupied_squares(self, gray, use_smoothing=True) -> set:
+        """Set of occupied (file, rank) tuples (piece_detector.py:442-445)."""
+        has = self.detect_all_pieces(gray, use_smoothing=use_smoothing).has_piece.cpu().numpy()
+        return {(sq % 8, sq // 8) for sq in range(64) if has[sq]}

@@ -149,6 +149,10 @@ class VisionPipeline:
     builds a new pipeline. ``device`` is the card unless the caller asks
     for the CPU; without a card, "cuda" raises. ``hough_backend`` is
     "conv", "exact" or "auto": exact on a CPU device, conv on the card.
+    ``with_change_detector=False`` leaves the EMA change model out of the
+    step: its state passes through and the change outputs are zeros.
+    ``bilateral_backend`` is the enhancer's bilateral backend ("auto",
+    "kernel", "plain": models/enhancer.bilateral).
     """
 
     def __init__(
@@ -160,6 +164,8 @@ class VisionPipeline:
         with_enhancer: bool = False,
         enhancer_profile: Optional[dict] = None,
         detector_overrides: Optional[dict] = None,
+        with_change_detector: bool = True,
+        bilateral_backend: str = "auto",
         device="cuda",
     ):
         self.device = resolve_device(device, "VisionPipeline")
@@ -216,6 +222,7 @@ class VisionPipeline:
         # board, which reproduces exactly this gather.)
         self.with_enhancer = with_enhancer
         self.enhancer_profile = dict(enhancer_profile) if enhancer_profile else {}
+        self.bilateral_backend = bilateral_backend
         if with_enhancer:
             B = geometry.board_size
             tqx, tqy, starts, tile = geometry.board_tile_query_coords()
@@ -229,6 +236,7 @@ class VisionPipeline:
                 s.iy.astype(np.int64) * B + s.ix, device=self.device
             )
 
+        self.with_change = with_change_detector
         cs = change_settings or {}
         self.z_threshold = float(cs.get("z_threshold", 2.5))
         self.initial_variance = float(cs.get("initial_variance", 100.0))
@@ -294,7 +302,8 @@ class VisionPipeline:
     def _enhanced_board_squares(self, board: torch.Tensor) -> torch.Tensor:
         """Warped color board (3, B, B) u8 -> enhanced padded gray squares
         (64, H+2p, W+2p) u8: enhance -> grayscale -> square extraction."""
-        board = enhance_planar(board, self.enhancer_profile)
+        board = enhance_planar(board, self.enhancer_profile,
+                               bilateral_backend=self.bilateral_backend)
         return planar_bgr2gray(board).reshape(-1)[self._ext_index]
 
     def _step_impl(self, state, frame, s2c_mask, s2c_given, refresh_refs,
@@ -327,17 +336,25 @@ class VisionPipeline:
             piece_in, gray, consts.masks, s2c_mask, s2c_given,
             consts.conv_plan, consts.conv_dims,
             gray_flat=gray_flat, hough_backend=self.hough_backend,
-            hough_params=consts.params, hough_bounds=self.bounds,
+            params=consts.params, bounds=self.bounds,
             use_smoothing=use_smoothing, use_delta=use_delta, **self._det_kwargs,
         )
-        gcd = gray_flat if gray_change is None else change_ops.flatten_pixels(gray_change)
-        cdet = change_ops.detect(
-            state.change, gcd, self.z_threshold, consts.dg.sq_mask_flat, consts.dg.sq_counts,
-        )
-        change_state = change_ops.update_references(
-            state.change, gcd, self.alpha,
-            torch.ones((gcd.shape[0],), dtype=torch.bool, device=gcd.device),
-        )
+        if self.with_change:
+            gcd = gray_flat if gray_change is None else change_ops.flatten_pixels(gray_change)
+            cdet = change_ops.detect(
+                state.change, gcd, self.z_threshold, consts.dg.sq_mask_flat, consts.dg.sq_counts,
+            )
+            change_state = change_ops.update_references(
+                state.change, gcd, self.alpha,
+                torch.ones((gcd.shape[0],), dtype=torch.bool, device=gcd.device),
+            )
+            intensity, pct, zpeak = cdet.intensity, cdet.pct_changed, cdet.z_peak
+        else:  # the change state passes through; its outputs are zeros
+            change_state = state.change
+            n, dev = gray.shape[0], gray.device
+            intensity = torch.zeros((n,), dtype=torch.int32, device=dev)
+            pct = torch.zeros((n,), dtype=torch.float32, device=dev)
+            zpeak = torch.zeros((n,), dtype=torch.float32, device=dev)
 
         outputs = StepOutputs(
             occupancy=det.has_piece,
@@ -346,9 +363,9 @@ class VisionPipeline:
             method=det.method,
             confidence=det.confidence,
             radius=det.radius,
-            change_intensity=cdet.intensity,
-            change_pct=cdet.pct_changed,
-            change_z_peak=cdet.z_peak,
+            change_intensity=intensity,
+            change_pct=pct,
+            change_z_peak=zpeak,
             center_mean=det.center_mean,
             corner_mean=det.border_mean,
             profile_extent=det.extent,

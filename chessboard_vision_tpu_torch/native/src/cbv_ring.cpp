@@ -4,7 +4,7 @@
 // camera-thread -> pipeline-thread handoff, with copy-in slots and
 // drop-oldest semantics. The ring of chessboard_vision_tpu/native/src/
 // cbv_native.cpp, copied so that the port builds it from its own source
-// (its host resampler and HWC->planar helpers are not carried).
+// (its host resampler and HWC->planar helpers are in cbv_resample.cpp).
 //
 // Built with g++ at first use by chessboard_vision_tpu_torch/native/
 // __init__.py (ctypes binding).

@@ -41,10 +41,20 @@ def gaussian_kernel_u8(ksize: int, sigma: float = 0.0) -> np.ndarray:
     return np.round(gaussian_kernel(ksize, sigma) * 256).astype(np.int64)
 
 
+def reflect101(i: torch.Tensor, n: int) -> torch.Tensor:
+    """Integer coordinates mapped into [0, n) by reflect-101, reflecting
+    again as often as needed (OpenCV's and numpy's "reflect" for a border
+    wider than the image)."""
+    if n == 1:
+        return torch.zeros_like(i)
+    period = 2 * n - 2
+    j = i.abs() % period
+    return torch.where(j >= n, period - j, j)
+
+
 def _reflect101_index(n: int, r: int, device) -> torch.Tensor:
-    """Indices [-r, n + r) mapped into [0, n) by reflect-101 (r < n)."""
-    i = torch.arange(-r, n + r, device=device).abs()
-    return torch.where(i >= n, 2 * n - 2 - i, i)
+    """Indices [-r, n + r) mapped into [0, n) by reflect-101."""
+    return reflect101(torch.arange(-r, n + r, device=device), n)
 
 
 def _reflect101_pad(x: torch.Tensor, r: int, axes=(-2, -1)) -> torch.Tensor:
@@ -71,13 +81,14 @@ def gaussian_blur(x: torch.Tensor, ksize: int, sigma: float = 0.0) -> torch.Tens
     return _gauss_u8(_reflect101_pad(x.to(torch.int32), ksize // 2), kq)
 
 
-def gaussian_blur_valid(x: torch.Tensor, ksize: int, pad: int = None) -> torch.Tensor:
+def gaussian_blur_valid(x: torch.Tensor, ksize: int, sigma: float = 0.0,
+                        pad: int = None) -> torch.Tensor:
     """Gaussian blur in 'valid' mode on (..., H, W) u8: the input already
     carries its border (the square resample bakes in a reflect-101 border),
     so the output shrinks by ksize-1. A ``pad`` wider than ksize//2
     center-crops the excess, so the output is always the true crop's size.
     """
-    out = _gauss_u8(x.to(torch.int32), [int(v) for v in gaussian_kernel_u8(ksize)])
+    out = _gauss_u8(x.to(torch.int32), [int(v) for v in gaussian_kernel_u8(ksize, sigma)])
     if pad is not None:
         off = pad - ksize // 2
         if off < 0:

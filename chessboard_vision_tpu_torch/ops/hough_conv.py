@@ -307,6 +307,7 @@ def find_circle(
     dims: ConvHoughDims,
     param1: int = 100,
     param2: int = 25,
+    vote_tol: float = _VOTE_TOL,
 ) -> ConvCircle:
     """Best circle near each square's center. gray: (64, H, W) u8 pre-blurred.
 
@@ -314,7 +315,7 @@ def find_circle(
        union window; masked to each square's own cells (kvalid), the
        first-max argmax picks one candidate per square.
     2. VERIFY: an edge pixel p with unit gradient g votes for the proposed
-       center c iff minR <= |p-c| <= maxR and |cross(c-p, g)| <= 2.5 px;
+       center c iff minR <= |p-c| <= maxR and |cross(c-p, g)| <= vote_tol px;
        found = votes > param2 (the exact backend's rule and threshold).
     """
     _, H, W = gray.shape
@@ -343,7 +344,7 @@ def find_circle(
     dist = torch.sqrt(dyc * dyc + dxc * dxc)
     in_range = (dist >= plan.r_min[:, None, None]) & (dist <= plan.r_max[:, None, None])
     cross = fma(dxc, gyn, -(dyc * gxn)).abs()  # XLA:CPU's rounding
-    votes = (e * in_range * (cross <= _VOTE_TOL)).sum(dim=(-2, -1))
+    votes = (e * in_range * (cross <= vote_tol)).sum(dim=(-2, -1))
     found = votes > param2
     return ConvCircle(
         found=found, cx=cx, cy=cy, radius=radius, score=best_score, votes=votes

@@ -19,7 +19,7 @@ import torch
 
 from chessboard_vision_tpu_torch.ops import hough as hough_ops
 from chessboard_vision_tpu_torch.ops import hough_conv as hough_conv_ops
-from chessboard_vision_tpu_torch.ops.warp import masked_mean
+from chessboard_vision_tpu_torch.ops.warp import masked_mean, masked_std
 
 METHOD_NONE, METHOD_HOUGH, METHOD_TOWER_TOP, METHOD_CENTER_DIFF, METHOD_SYMMETRY = range(5)
 METHOD_NAMES = [None, "hough", "tower_top", "center_diff", "symmetry"]
@@ -116,6 +116,8 @@ def detect_pieces(
     hough_backend: str = "conv",
     hough_params: hough_ops.HoughParams = None,
     hough_bounds: hough_ops.HoughBounds = None,
+    std_threshold: float = STD_THRESHOLD,
+    circle_threshold: float = CIRCLE_THRESHOLD,
 ) -> PieceDetections:
     """Raw per-square cascade on preprocessed squares, gray: (64, H, W) u8.
 
@@ -124,14 +126,10 @@ def detect_pieces(
     cv2-faithful voting transform (ops/hough.py, needs hough_params and
     hough_bounds)."""
     gf = gray.float()
-    v = masks.valid
-    n = masks.counts.float()
 
     # Uniformity prefilter: population std over the valid crop.
-    mu = (gf * v).sum(dim=(-2, -1)) / n
-    d2 = torch.where(v, (gf - mu[:, None, None]) ** 2, 0.0)
-    std = torch.sqrt(d2.sum(dim=(-2, -1)) / n)
-    std_ok = std >= STD_THRESHOLD
+    std = masked_std(gf, masks.valid, masks.counts)
+    std_ok = std >= std_threshold
 
     # Method 1: Hough circles.
     min_dim = torch.minimum(masks.heights, masks.widths)
@@ -161,7 +159,7 @@ def detect_pieces(
     rmu = ring_means.mean(dim=-1)
     ring_var = ((ring_means - rmu[:, None]) ** 2).mean(dim=-1)
     symmetry = torch.clamp(ring_var / 500.0, max=1.0)
-    sym_found = symmetry > CIRCLE_THRESHOLD
+    sym_found = symmetry > circle_threshold
 
     # Piece-size profile extent: per ring, the fraction of pixels on the
     # piece's side of the center/border midpoint; -1 on low contrast.

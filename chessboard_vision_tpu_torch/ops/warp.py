@@ -34,6 +34,11 @@ class DeviceGeometry(NamedTuple):
     sq_heights: torch.Tensor  # (64,) i32
     sq_widths: torch.Tensor  # (64,) i32
 
+    @property
+    def pad(self) -> int:
+        """The squares' blur border: (Hp - H) // 2."""
+        return (self.sq_iy.shape[1] - self.sq_mask.shape[1]) // 2
+
     @classmethod
     def from_host(cls, geom: BoardGeometry, device="cpu") -> "DeviceGeometry":
         s = geom.squares
@@ -130,3 +135,20 @@ def masked_mean(x: torch.Tensor, mask: torch.Tensor, counts: torch.Tensor) -> to
     does not depend on the summation order."""
     s = (x.float() * mask).sum(dim=(-2, -1))
     return s / counts.float()
+
+
+def masked_std(x: torch.Tensor, mask: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+    """Population std over each square's valid region (np.std semantics).
+    x: (64, H, W) -> (64,) f32."""
+    xf = x.float()
+    n = counts.float()
+    mu = (xf * mask).sum(dim=(-2, -1)) / n
+    d2 = torch.where(mask, (xf - mu[:, None, None]) ** 2, 0.0)
+    return torch.sqrt(d2.sum(dim=(-2, -1)) / n)
+
+
+def interior(x: torch.Tensor, g: DeviceGeometry) -> torch.Tensor:
+    """Strip the blur border: (64, Hp, Wp[, C]) -> (64, H, W[, C])."""
+    p = g.pad
+    H, W = g.sq_mask.shape[1], g.sq_mask.shape[2]
+    return x[:, p : p + H, p : p + W]

@@ -19,6 +19,14 @@ fleet-level reductions (``fleet_sum``) cross between processes.
   it returns the process's frames with their global stream rows, checked
   against the mesh; ``MultiStreamPipeline.step`` on such a mesh takes
   those frames.
+- ``row_groups``, ``row_gather`` and ``row_broadcast`` carry a data row
+  whose space slots belong to more than one process (where the space axis
+  does not divide a process's slots): one process group a such row, made
+  at the pipeline's construction in the same order on every process, and
+  per tick a broadcast of the row's flags from the process that owns the
+  row (the one holding its first slot) and a gather of the other
+  processes' square blocks onto it. A process that holds no slot of a row
+  joins none of that row's calls.
 
 Backends: NCCL where the process's slots are CUDA cards of its own, Gloo
 otherwise (the CPU, or several processes on one card: NCCL refuses two
@@ -26,13 +34,17 @@ ranks on one card). Gloo in the card's torch (2.11.0+cu128) takes a CUDA
 tensor in ``all_reduce`` (it stages it through the host itself;
 chip_smoke's fleet phase runs ``fleet_sum`` on the card's tensors over
 Gloo), so ``fleet_sum`` hands either backend the tensor where it lies.
+So does the row exchange: Gloo there takes CUDA tensors in ``gather`` and
+``broadcast`` too (checked on the card: both, and ``all_gather``, gave the
+right values between two processes on cuda:0). Only the row's flags,
+which start on the host, are moved onto the card for NCCL.
 """
 
 from __future__ import annotations
 
 import datetime
 import os
-from typing import NamedTuple, Optional, Sequence
+from typing import Dict, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -147,18 +159,24 @@ class LocalStreams(NamedTuple):
 
 
 def distribute_local_streams(mesh: StreamMesh, local_frames) -> LocalStreams:
-    """Each process's (local_streams, ...) frames as its share of the fleet's
-    (world * local_streams, ...) batch over the mesh's "data" axis. Raises
-    where the mesh puts other streams on this process's slots."""
-    world = dist.get_world_size() if dist.is_initialized() else 1
+    """Each process's frames as its share of the fleet's batch over the
+    mesh's "data" axis: the frames of every data row in which it holds a
+    slot, in row order (a row split over processes is given to each of
+    them). The fleet's stream count follows from the mesh: the rows this
+    process holds take ``len(local_frames)`` streams. Raises where that
+    does not divide over the rows, or where the mesh gives this process
+    rows that are not contiguous."""
     frames = np.asarray(local_frames)
-    n = frames.shape[0] * world
+    dp = mesh.axis_size(DATA)
+    ranks = mesh.ranks.reshape(dp, -1)
+    held = int(sum((row == mesh.process).any() for row in ranks))
+    if held == 0:
+        raise ValueError(f"process {mesh.process} holds no slot of {mesh}")
+    if (frames.shape[0] * dp) % held:
+        raise ValueError(f"{frames.shape[0]} streams do not divide over this process's "
+                         f"{held} data rows")
+    n = frames.shape[0] * dp // held
     rows = local_rows(stream_sharding(mesh).local_blocks(n))
-    want = range(mesh.process * frames.shape[0], (mesh.process + 1) * frames.shape[0])
-    if rows != want:
-        raise ValueError(f"the mesh gives process {mesh.process}'s slots streams "
-                         f"{rows.start}:{rows.stop} of {n}; its {frames.shape[0]} frames are "
-                         f"streams {want.start}:{want.stop}")
     return LocalStreams(frames, rows, (n,) + frames.shape[1:])
 
 
@@ -171,3 +189,39 @@ def fleet_sum(per_stream: torch.Tensor) -> torch.Tensor:
     if dist.is_initialized():
         dist.all_reduce(total)
     return total
+
+
+def row_groups(mesh: StreamMesh) -> Dict[int, object]:
+    """One process group a data row whose slots belong to more than one
+    process, keyed by the row, made in row order. Every process must call
+    this at the same point, as ``new_group`` requires; a process that
+    holds no slot of a row gets a group it never uses. Each group's calls
+    give up after TIMEOUT."""
+    rows = {d: sorted({int(r) for r in ranks})
+            for d, ranks in enumerate(mesh.ranks.reshape(mesh.axis_size(DATA), -1))
+            if len(set(ranks.tolist())) > 1}
+    if rows and not dist.is_initialized():
+        raise ValueError(f"{mesh} splits data rows {sorted(rows)} over processes: that needs "
+                         "a torch.distributed group (init_distributed) on every process")
+    return {d: dist.new_group(ranks, timeout=TIMEOUT) for d, ranks in rows.items()}
+
+
+def row_gather(t: torch.Tensor, owner: int, ranks: Sequence[int], group) -> Optional[dict]:
+    """Every member's ``t`` (one shape on all of them) on ``owner``: a dict
+    from member rank to its tensor, on ``t``'s device; None on the other
+    members, which send theirs."""
+    if dist.get_rank() != owner:
+        dist.gather(t, None, dst=owner, group=group)
+        return None
+    bufs = [torch.empty_like(t) for _ in ranks]
+    dist.gather(t, bufs, dst=owner, group=group)
+    return dict(zip(sorted(ranks), bufs))
+
+
+def row_broadcast(t: torch.Tensor, owner: int, group, device: torch.device) -> torch.Tensor:
+    """The owner's host tensor ``t`` on every member of the row's group, on
+    the host (moved onto ``device`` for the call under NCCL, which takes
+    card tensors only)."""
+    staged = t.to(device) if dist.get_backend(group) == "nccl" else t
+    dist.broadcast(staged, src=owner, group=group)
+    return staged.cpu()

@@ -31,9 +31,17 @@ once a block of dilations (ops/canny.py), which serializes the slots. A
 tick's outputs come back as (N, 64) and (N,) leaves gathered onto the
 mesh's first slot (a few KB); the state stays where each slot computes it
 (``MeshState``). On a mesh that spans processes (parallel/distributed.py)
-a process runs its own slots on its own streams: ``step`` takes those
-streams' frames alone (or all N, of which it keeps its rows), and its
-outputs hold its streams, whose global rows they name (``streams``).
+a process runs its own slots on its own streams: ``step`` takes the frames
+of every data row in which it holds a slot (``frame_rows``; or all N, of
+which it keeps those), and its outputs hold the rows it owns (``rows``),
+whose global rows they name (``streams``). A data row's owner is the
+process of its first slot, which holds the row's FSM state. A row whose
+space slots belong to more than one process (the space axis does not
+divide a process's slots) is run by each of them on its own square
+blocks; each tick the owner's flags (square masks, re-reference) go to
+the others first, and their blocks' outputs, ``visual_changes`` among
+them, come back to the owner after the core (distributed.row_gather), so
+the other processes report none of that row.
 
 Frames: with one shared geometry, HWC camera frames (host arrays too, as
 in the JAX package's tick, unlike its single-stream ``step``) take the
@@ -79,6 +87,7 @@ from chessboard_vision_tpu_torch.ops import hough as hough_ops
 from chessboard_vision_tpu_torch.ops import matmul_resample as mr
 from chessboard_vision_tpu_torch.ops import piece as piece_ops
 from chessboard_vision_tpu_torch.ops.color import planar_bgr2gray
+from chessboard_vision_tpu_torch.parallel import distributed as pdist
 from chessboard_vision_tpu_torch.parallel import mesh as mesh_lib
 from chessboard_vision_tpu_torch.utils.checkpoint import tree_map
 
@@ -97,7 +106,9 @@ class MeshState(NamedTuple):
     """A meshed pipeline's state, left where each slot computes it."""
 
     pipe: tuple  # one PipelineState a local slot, mesh order: leaves (N/dp, 64/sp, ...)
-    noise: tuple  # one NoiseFsmState a local data row, on its first slot: leaves (N/dp, ...)
+    noise: tuple  # one NoiseFsmState an owned data row, on its first slot: leaves (N/dp, ...)
+    # Per local slot, in ``pipe``'s order: (data row, first square, end square).
+    blocks: tuple = ()
 
 
 class MultiStreamOutputs(NamedTuple):
@@ -113,6 +124,21 @@ class _Slot(NamedTuple):
     pipe: VisionPipeline  # the device's pipeline, shared by its slots
     consts: StepConsts  # per-square constants of the slot's streams and squares
     plans: Optional[list]  # per-stream geometry: the slot's streams' (plan, dims)
+
+
+class _Row(NamedTuple):
+    """A data row in which this process holds a slot."""
+
+    index: int  # the data row
+    slots: list  # indices into the pipeline's ``slots`` of this process's slots of the row
+    blocks: list  # every slot's block of the row, this process's or not
+    owner: int  # the rank of the row's first slot, which holds its FSM state
+    ranks: list  # the ranks holding its slots, owner first; one for a row in one process
+    group: object  # the row's process group (None for a row in one process)
+
+    @property
+    def split(self) -> bool:
+        return len(self.ranks) > 1
 
 
 def _tile(x, n: int, squares: range = ALL_SQUARES, last: bool = False):
@@ -192,6 +218,20 @@ def _stack(outs: List[MultiStreamOutputs]) -> MultiStreamOutputs:
     )
 
 
+def _as_i32(x: torch.Tensor) -> torch.Tensor:
+    """A bool, i32 or f32 tensor as i32, bit for bit where it is f32."""
+    return x.view(torch.int32) if x.dtype == torch.float32 else x.to(torch.int32)
+
+
+def _from_i32(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return x.view(torch.float32) if dtype == torch.float32 else x.to(dtype)
+
+
+def _positions(blocks) -> tuple:
+    """MeshState.blocks of slot blocks: (data row, first square, end square)."""
+    return tuple((b.position[0], b.squares.start, b.squares.stop) for b in blocks)
+
+
 class MultiStreamPipeline:
     """N-stream batched pipeline on one device (the card unless the caller
     asks for the CPU), or over the slots of a stream mesh (``mesh``, with
@@ -209,6 +249,8 @@ class MultiStreamPipeline:
         with_enhancer: bool = False,
         enhancer_profile: Optional[dict] = None,
         hough_backend: str = "auto",
+        with_change_detector: bool = True,
+        bilateral_backend: str = "auto",
         device=None,
     ):
         self.n_streams = n = int(n_streams)
@@ -231,10 +273,7 @@ class MultiStreamPipeline:
                     )
         else:
             base, geos = geometry, None
-        # Slots a data row: the noise FSM of a row runs on its first slot.
-        self._per_row = 1 if mesh is None else mesh.axis_size(mesh_lib.SPACE)
-        blocks = self._blocks(device)
-        self.rows = mesh_lib.local_rows(blocks)
+        blocks, everyone = self._blocks(device)
 
         pipes, consts, plans = {}, {}, {}
         self.slots: List[_Slot] = []
@@ -248,6 +287,8 @@ class MultiStreamPipeline:
                     with_enhancer=with_enhancer,
                     enhancer_profile=enhancer_profile,
                     hough_backend=hough_backend,
+                    with_change_detector=with_change_detector,
+                    bilateral_backend=bilateral_backend,
                     device=b.device,
                 )
             p = pipes[b.device]
@@ -271,26 +312,55 @@ class MultiStreamPipeline:
         first = self.slots[0]
         self.pipe, self.consts, self.device = first.pipe, first.consts, first.block.device
         self._stream_plans = first.plans
+        self._rows = self._layout(everyone)
+        # The rows whose frames ``step`` takes, and the rows it reports.
+        self.frame_rows = mesh_lib.local_rows(blocks)
+        owned = [s for r in self._owned() for s in r.blocks[0].streams]
+        self.rows = (range(owned[0], owned[-1] + 1) if owned
+                     else range(self.frame_rows.start, self.frame_rows.start))
+        if list(self.rows) != owned:
+            raise ValueError(f"the rows process {self._process} owns are not contiguous: "
+                             f"{owned}")
 
-    def _blocks(self, device) -> List[mesh_lib.SlotBlock]:
-        """This process's slots: one holding every stream and square without
-        a mesh, else the mesh's slots of this process."""
+    @property
+    def _process(self) -> int:
+        return 0 if self.mesh is None else self.mesh.process
+
+    def _blocks(self, device):
+        """(this process's slots, every slot): one slot holding every stream
+        and square without a mesh, else the mesh's slots."""
         if self.mesh is None:
             dev = resolve_device("cuda" if device is None else device, "MultiStreamPipeline")
-            return [mesh_lib.SlotBlock((0, 0), dev, 0, range(self.n_streams), ALL_SQUARES)]
-        blocks = mesh_lib.stream_square_sharding(self.mesh).local_blocks(self.n_streams)
+            blocks = [mesh_lib.SlotBlock((0, 0), dev, 0, range(self.n_streams), ALL_SQUARES)]
+            return blocks, blocks
+        sharding = mesh_lib.stream_square_sharding(self.mesh)
+        everyone = sharding.blocks(self.n_streams)
+        blocks = sharding.local_blocks(self.n_streams)
         if not blocks:
             raise ValueError(f"no slot of {self.mesh} belongs to process {self.mesh.process}")
         if device is not None and mesh_lib.slot_device(device) != blocks[0].device:
             raise ValueError(f"device {str(device)!r} disagrees with the mesh, whose first "
                              f"slot of this process is {blocks[0].device}")
-        rows = {}
-        for b in blocks:
-            rows.setdefault(b.position[0], []).append(b)
-        if any(len(r) != self._per_row for r in rows.values()):
-            raise ValueError("a data row's space slots must all belong to one process: the "
-                             "noise FSM gathers the row's squares on its first slot")
-        return blocks
+        return blocks, everyone
+
+    def _layout(self, everyone) -> List[_Row]:
+        """The data rows in which this process holds a slot; the groups of
+        the rows split over processes are made here, on every process."""
+        groups = {} if self.mesh is None else pdist.row_groups(self.mesh)
+        per_row = 1 if self.mesh is None else self.mesh.axis_size(mesh_lib.SPACE)
+        rows = []
+        for d in range(len(everyone) // per_row):
+            row = everyone[d * per_row:(d + 1) * per_row]
+            mine = [i for i, s in enumerate(self.slots) if s.block.position[0] == d]
+            if mine:
+                ranks = list(dict.fromkeys(b.rank for b in row))
+                rows.append(_Row(d, mine, row, row[0].rank, ranks, groups.get(d)))
+        return rows
+
+    def _owned(self) -> List[_Row]:
+        """The rows whose first slot is this process's: it holds their FSM
+        state and reports them."""
+        return [r for r in self._rows if r.owner == self._process]
 
     # -- device functions ------------------------------------------------
 
@@ -328,8 +398,8 @@ class MultiStreamPipeline:
 
     def _tick_slots(self, state, inputs):
         """One tick on this process's slots: ``inputs`` one (frames, flags
-        (n, 66) bool) a slot, on its device. Returns (state, outputs
-        gathered onto the first slot)."""
+        (n, 66) bool) a slot, on its device. Returns (state, outputs of the
+        rows this process owns, gathered onto its first slot)."""
         pipes, noises = self._parts(state)
         new_pipes, outs = [], []
         for slot, ps, (frames, flags) in zip(self.slots, pipes, inputs):
@@ -346,19 +416,46 @@ class MultiStreamPipeline:
             )
             new_pipes.append(_map_pipe(lambda x: x.reshape((n, -1) + tuple(x.shape[1:])), new))
             outs.append(StepOutputs(*(x.reshape(n, -1) for x in out)))
-        k = self._per_row
+        steps = [self._row_outputs(row, [outs[i] for i in row.slots]) for row in self._rows]
+        steps = [o for o in steps if o is not None]  # the owned rows'
         new_noises, noise_outs = [], []
-        for r, noise in enumerate(noises):
-            row = outs[r * k:(r + 1) * k]
+        for step, noise in zip(steps, noises):
             # The row's 64 squares on its first slot, which owns its FSM state.
-            changes = row[0].visual_changes if k == 1 else torch.cat(
-                [o.visual_changes.to(self.slots[r * k].block.device) for o in row], dim=1)
-            noise, noise_out = fsm_ops.noise_step(noise, changes)
+            noise, noise_out = fsm_ops.noise_step(noise, step.visual_changes)
             new_noises.append(noise)
             noise_outs.append(noise_out)
+        if not steps:  # this process owns no row: outputs of no stream
+            steps = [StepOutputs(*(x.new_empty((0, 64)) for x in outs[0]))]
+            noise_outs = [fsm_ops.noise_step(fsm_ops.init_state(0, device=self.device),
+                                             steps[0].visual_changes)[1]]
         return (self._state(new_pipes, new_noises),
-                MultiStreamOutputs(_assemble(outs, k, self.device),
+                MultiStreamOutputs(_assemble(steps, 1, self.device),
                                    _assemble(noise_outs, 1, self.device), self.rows))
+
+    def _row_outputs(self, row: _Row, parts: list) -> Optional[StepOutputs]:
+        """A row's (n, 64) StepOutputs on its first local slot's device from
+        this process's square blocks ``parts``: joined where the row is
+        this process's alone; for a row split over processes the other
+        processes' blocks are gathered onto the owner, and the others get
+        None."""
+        device = self.slots[row.slots[0]].block.device
+        if not row.split:
+            return _assemble(parts, len(parts), device)
+        # Every field packed bit for bit into one int32 buffer of the whole
+        # row, this process's squares filled: one gather a tick.
+        n = parts[0].occupancy.shape[0]
+        buf = torch.zeros((len(StepOutputs._fields), n, 64), dtype=torch.int32, device=device)
+        for i, part in zip(row.slots, parts):
+            sq = self.slots[i].block.squares
+            buf[:, :, sq.start:sq.stop] = torch.stack([_as_i32(x.to(device)) for x in part])
+        got = pdist.row_gather(buf, row.owner, row.ranks, row.group)
+        if got is None:
+            return None
+        for b in row.blocks:
+            if b.rank != self._process:
+                buf[:, :, b.squares.start:b.squares.stop] = \
+                    got[b.rank][:, :, b.squares.start:b.squares.stop]
+        return StepOutputs(*(_from_i32(x, like.dtype) for x, like in zip(buf, parts[0])))
 
     def _tick(self, state: MultiStreamState, frames: torch.Tensor, flags: torch.Tensor):
         """One tick of an unmeshed pipeline on device tensors: frames (N, 3,
@@ -376,10 +473,11 @@ class MultiStreamPipeline:
     def _state(self, pipes, noises):
         if self.mesh is None:
             return MultiStreamState(pipes[0], noises[0])
-        return MeshState(tuple(pipes), tuple(noises))
+        return MeshState(tuple(pipes), tuple(noises), _positions(s.block for s in self.slots))
 
     def _row_slots(self) -> List[_Slot]:
-        return self.slots[::self._per_row]
+        """The first slot of each owned row, which holds its FSM state."""
+        return [self.slots[r.slots[0]] for r in self._owned()]
 
     def replace_streams(self, state, fresh, streams):
         """``state`` with the rows of the given global streams taken from
@@ -414,13 +512,30 @@ class MultiStreamPipeline:
 
     def _local(self, n_given: int) -> int:
         """The global row of the given frames' first stream: they hold all
-        N streams or, on a mesh across processes, this process's."""
+        N streams or, on a mesh across processes, this process's
+        ``frame_rows``."""
         if n_given == self.n_streams:
             return 0
-        if n_given == len(self.rows):
-            return self.rows.start
+        if n_given == len(self.frame_rows):
+            return self.frame_rows.start
         raise ValueError(f"{n_given} streams given; this pipeline takes {self.n_streams} "
-                         f"(or this process's {len(self.rows)})")
+                         f"(or the {len(self.frame_rows)} of this process's rows "
+                         f"{self.frame_rows.start}:{self.frame_rows.stop})")
+
+    def _row_flags(self, flags: np.ndarray) -> np.ndarray:
+        """The tick's flags with each split row's taken from its owner, so
+        every process runs the row's squares on the same square masks and
+        re-reference flags (the owner's games decide them)."""
+        first = self._local(flags.shape[0])
+        for row in self._rows:
+            if row.split:
+                rows = slice(row.blocks[0].streams.start - first,
+                             row.blocks[0].streams.stop - first)
+                got = pdist.row_broadcast(torch.from_numpy(np.ascontiguousarray(flags[rows])),
+                                          row.owner, row.group,
+                                          self.slots[row.slots[0]].block.device)
+                flags[rows] = got.numpy()
+        return flags
 
     def _uploads(self, frames, flags: np.ndarray, axis: int) -> list:
         """One H2D copy a slot: its streams' frames and flags (the stream
@@ -462,7 +577,7 @@ class MultiStreamPipeline:
         s2c_masks: optional (N, 64) bool squares to force a fresh detection
         on; refresh: optional (N,) bool forced re-reference per stream.
         Returns (state, MultiStreamOutputs on the device)."""
-        flags = self._flags((), s2c_masks, refresh, np.shape(frames)[0])
+        flags = self._row_flags(self._flags((), s2c_masks, refresh, np.shape(frames)[0]))
         return self._tick_slots(state, self._uploads(frames, flags, 0))
 
     def step_chunk(self, state, frames):
@@ -505,9 +620,11 @@ def multistream_state_from_numpy(tree, device=None, mesh: Optional[mesh_lib.Stre
         if device is not None and mesh_lib.slot_device(device) != blocks[0].device:
             raise ValueError(f"device {str(device)!r} disagrees with the mesh's first slot "
                              f"{blocks[0].device}")
-        # The noise state of a row on its first slot.
-        noises = mesh_lib.shard_pytree_leading_axis(noise, mesh)[::mesh.axis_size(mesh_lib.SPACE)]
-        return MeshState(tuple(mesh_lib.shard_pytree_stream_square(pipe, mesh)), tuple(noises))
+        # The noise state of a row on its first slot: the rows this process owns.
+        noises = [x for x, b in zip(mesh_lib.shard_pytree_leading_axis(noise, mesh), blocks)
+                  if b.position[1] == 0]
+        return MeshState(tuple(mesh_lib.shard_pytree_stream_square(pipe, mesh)), tuple(noises),
+                         _positions(blocks))
     device = resolve_device("cuda" if device is None else device, "multistream_state_from_numpy")
     return MultiStreamState(
         pipe=tp.state_from_numpy(tree.pipe, device=device),
@@ -518,11 +635,20 @@ def multistream_state_from_numpy(tree, device=None, mesh: Optional[mesh_lib.Stre
 def multistream_state_to_numpy(state) -> MultiStreamState:
     """The port's state -> a MultiStreamState with host numpy leaves (N,
     ...); a MeshState is gathered from its slots (on a mesh across
-    processes: this process's streams)."""
+    processes: the rows this process owns, each of which it must hold
+    whole: a row split over processes raises)."""
     if isinstance(state, MeshState):
-        per_row, cpu = len(state.pipe) // len(state.noise), torch.device("cpu")
-        state = MultiStreamState(_assemble(list(state.pipe), per_row, cpu),
-                                 _assemble(list(state.noise), 1, cpu))
+        cpu = torch.device("cpu")
+        rows = {}
+        for (d, q0, q1), pipe in zip(state.blocks, state.pipe):
+            rows.setdefault(d, []).append((q0, q1, pipe))
+        owned = [parts for parts in rows.values() if parts[0][0] == 0]
+        for parts in owned:
+            if [q for q0, q1, _ in parts for q in range(q0, q1)] != list(ALL_SQUARES):
+                raise ValueError("multistream_state_to_numpy: a data row of this state is "
+                                 "split over processes; its other squares are held elsewhere")
+        pipes = [_assemble([p for _, _, p in parts], len(parts), cpu) for parts in owned]
+        state = MultiStreamState(_assemble(pipes, 1, cpu), _assemble(list(state.noise), 1, cpu))
     return MultiStreamState(
         pipe=tp.state_to_numpy(state.pipe),
         noise=fsm_ops.NoiseFsmState(*(x.cpu().numpy() for x in state.noise)),

@@ -11,9 +11,15 @@ inference); the noise FSM runs on the device (ops/fsm.py).
 ``mesh`` shards the streams (and squares) over a stream mesh
 (parallel/mesh.py), as in the JAX package; the drift rebuild and
 ``resume_checkpoint`` keep it, and the drift monitors run on the mesh's
-first slot. ``save_checkpoint``/``resume_checkpoint`` use the JAX
-package's format, the device state gathered from a mesh's slots, so a
-checkpoint of either package resumes in the other, meshed or not.
+first slot. On a mesh that spans processes each process's session plays
+the games of the rows its pipeline owns (``rows``: the first slot of the
+row is its own) and takes the frames of every row it holds a slot of
+(``MultiStreamPipeline.frame_rows``); the square masks and re-reference
+flags of a row split over processes are its owner's. Drift checks and
+checkpoints hold all N rigs and so stay with a mesh in one process.
+``save_checkpoint``/``resume_checkpoint`` use the JAX package's format,
+the device state gathered from a mesh's slots, so a checkpoint of either
+package resumes in the other, meshed or not.
 ``auto_recalibrate=True`` gives every rig a DriftMonitor (session/drift.py)
 checked every ``drift_check_interval`` ticks; the rigs confirmed bumped in
 a tick get their shifted corners in ONE rebuild of the pipeline in
@@ -90,6 +96,10 @@ class MultiStreamSession:
         pipeline_kw.setdefault("change_settings", load_json_config(SENSITIVITY_FILE))
         self._pipeline_kw = dict(pipeline_kw, mesh=mesh, device=device)
         self.ms = MultiStreamPipeline(geometry, n_streams=n_streams, **self._pipeline_kw)
+        if auto_recalibrate and len(self.ms.frame_rows) != n_streams:
+            raise ValueError("auto_recalibrate needs every rig's frames in this process; this "
+                             f"mesh gives it streams {self.ms.frame_rows.start}:"
+                             f"{self.ms.frame_rows.stop} of {n_streams}")
         self.device = self.ms.device
         self.state = self.ms.init_state()
         self.streams = [_StreamState() for _ in range(n_streams)]
@@ -156,17 +166,26 @@ class MultiStreamSession:
             squares.add((chess.square_file(move.to_square), chess.square_rank(move.to_square)))
         return positions_to_mask(squares)
 
+    @property
+    def rows(self) -> range:
+        """The streams whose games this session plays: all N, or on a mesh
+        across processes the rows its pipeline owns."""
+        return self.ms.rows
+
     def on_frames(self, frames) -> List[Optional["chess.Move"]]:
-        """One tick: N frames -> the committed move (or None) per stream.
-        One upload and one readback (occupancy and the FSM's blocked flag)."""
+        """One tick: the frames of all N streams (or, on a mesh across
+        processes, of the pipeline's ``frame_rows``) -> the committed move
+        (or None) of each stream of ``rows``. One upload and one readback
+        (occupancy and the FSM's blocked flag)."""
         self.frame_count += 1
+        given = range(self.n) if len(frames) == self.n else self.ms.frame_rows
         if self.frame_count % self.FULL_SCAN_PERIOD != 0:
-            s2c = np.stack([self._smart_scan_mask(st) for st in self.streams])
+            s2c = np.stack([self._smart_scan_mask(self.streams[i]) for i in given])
         else:
             s2c = None
-        refresh = np.array([st.refresh_next for st in self.streams])
-        for st in self.streams:
-            st.refresh_next = False
+        refresh = np.array([self.streams[i].refresh_next for i in given])
+        for i in given:
+            self.streams[i].refresh_next = False
 
         if self.drift is not None and self.frame_count % self.drift_check_interval == 0:
             self._check_drift(frames)
@@ -175,9 +194,10 @@ class MultiStreamSession:
         host = torch.cat([out.step.occupancy, out.noise.blocked[:, None]], dim=1).cpu().numpy()
         moves: List[Optional[chess.Move]] = []
         now = time.time()
-        for i, st in enumerate(self.streams):
-            vision = occupancy_to_set(host[i, :64])
-            moves.append(self._process_stable_move(i, st, vision, bool(host[i, 64]), now))
+        for j, i in enumerate(out.streams):
+            vision = occupancy_to_set(host[j, :64])
+            moves.append(self._process_stable_move(i, self.streams[i], vision,
+                                                   bool(host[j, 64]), now))
         return moves
 
     def _process_stable_move(self, idx, st: _StreamState, vision, blocked, now):

@@ -13,14 +13,20 @@ of its tests' fleet worker. Two modes:
   ``--devices cpu`` names eight CPU slots.
 - ``--fleet-worker RANK WORLD PORT FRAMES.npz EXPECTED.npz --device D
   [--backend B]``: one process of a fleet of WORLD processes on
-  localhost:PORT. It loads only its own streams' frames from FRAMES.npz
-  (``save_fleet``: no JAX and no cv2 needed), joins the group through
-  ``init_distributed`` (False is a failure here), builds the global mesh
-  over its slots (all on D), runs a capture and a tick of its streams, and
-  checks its occupancy against its rows of EXPECTED.npz ("occ", (N, 64)),
-  its outputs' global rows, and the fleet's per-square sum of occupancy
-  (``fleet_sum``) against the expected one. It prints
-  ``FLEET-OK rank=R`` and exits 0, or exits non-zero.
+  localhost:PORT. It joins the group through ``init_distributed`` (False
+  is a failure here), builds the global mesh over its slots (all on D; 1-D,
+  or of the shape FRAMES.npz names), loads from FRAMES.npz (``save_fleet``:
+  no JAX and no cv2 needed) the frames of the data rows it holds a slot of,
+  runs a capture and a tick (and, where FRAMES.npz has square masks, a
+  second tick with them; a process gives wrong masks for the rows it does
+  not own, which the owner's must override), and checks the rows it owns:
+  occupancy against EXPECTED.npz's "occ" (N, 64), each "t<tick>_<field>"
+  array there too (StepOutputs fields, "noise_<field>" for the FSM's;
+  floats within its "rtol"/"atol", the rest exactly), its outputs' global
+  rows, and the fleet's per-square sum of occupancy (``fleet_sum``, each
+  stream counted by its owner) against the expected one. It prints
+  ``FLEET-OK rank=R streams=A:B of N`` (its owned rows) and exits 0, or
+  exits non-zero.
 """
 
 from __future__ import annotations
@@ -36,7 +42,11 @@ from chessboard_vision_tpu_torch.models import pipeline as tp
 from chessboard_vision_tpu_torch.ops.layout import to_planar
 from chessboard_vision_tpu_torch.parallel import distributed as pdist
 from chessboard_vision_tpu_torch.parallel import multistream as tms
-from chessboard_vision_tpu_torch.parallel.mesh import make_mesh
+from chessboard_vision_tpu_torch.parallel.mesh import (
+    local_rows,
+    make_mesh,
+    stream_square_sharding,
+)
 from chessboard_vision_tpu_torch.tools.synth import SynthCamera, bench_corners, initial_occupancy
 
 FRAME_SIZE = (240, 320)  # (H, W)
@@ -112,14 +122,44 @@ def dryrun(devices, seed: int = 0) -> None:
         assert_stream_parity(out, refs[:streams], steps[:streams], g, ms.device, label, **kw)
 
 
-def save_fleet(path, refs, steps, g: BoardGeometry, margin: int, slots: int) -> None:
+def save_fleet(path, refs, steps, g: BoardGeometry, margin: int, slots: int,
+               shape=None, masks=None) -> None:
     """A fleet's workload for ``fleet_worker``: each stream's reference and
     step frames under keys of their own (a worker loads its streams alone),
-    the rig's corners, capture size and margin, the slots a process."""
+    the rig's corners, capture size and margin, the slots a process, and
+    optionally the global mesh's (data, space) shape and (N, 64) square
+    masks for a second tick."""
     arrays = {f"ref_{i}": r for i, r in enumerate(refs)}
     arrays.update({f"step_{i}": s for i, s in enumerate(steps)})
+    if shape is not None:
+        arrays["shape"] = np.asarray(shape)
+    if masks is not None:
+        arrays["masks"] = np.asarray(masks, bool)
     np.savez(path, corners=g.src_corners, display_size=np.array([g.src_w, g.src_h]),
              margin=margin, slots=slots, n_streams=len(refs), **arrays)
+
+
+def _check_expected(expected, tick: int, out, rows: range, rank: int) -> int:
+    """Every "t<tick>_..." array of EXPECTED.npz against this rank's owned
+    rows of the tick's outputs; returns how many were checked."""
+    host = tms.outputs_to_numpy(out)
+    rtol, atol = float(expected.get("rtol", 0.0)), float(expected.get("atol", 0.0))
+    checked = 0
+    for key in expected.files:
+        if not key.startswith(f"t{tick}_"):
+            continue
+        name = key[len(f"t{tick}_"):]
+        part, field = ((host.noise, name[len("noise_"):]) if name.startswith("noise_")
+                       else (host.step, name))
+        got, want = getattr(part, field), expected[key][rows.start:rows.stop]
+        if np.issubdtype(want.dtype, np.floating):
+            ok = np.allclose(got, want, rtol=rtol, atol=atol)
+        else:
+            ok = np.array_equal(got, want)
+        check(ok, f"rank {rank}: tick {tick} {name} of streams {rows.start}:{rows.stop} "
+              "differs from the expected rows")
+        checked += 1
+    return checked
 
 
 def fleet_worker(rank: int, world: int, port: int, frames_path: str, expected_path: str,
@@ -127,33 +167,51 @@ def fleet_worker(rank: int, world: int, port: int, frames_path: str, expected_pa
     """One process of the fleet (module docstring); raises on any failure."""
     with np.load(frames_path) as z:
         n, slots = int(z["n_streams"]), int(z["slots"])
-        mine = range(rank * n // world, (rank + 1) * n // world)
-        refs = np.stack([z[f"ref_{i}"] for i in mine])
-        steps = np.stack([z[f"step_{i}"] for i in mine])
+        shape = tuple(int(v) for v in z["shape"]) if "shape" in z else None
+        masks = z["masks"] if "masks" in z else None
         g = BoardGeometry.from_calibration(z["corners"], display_size=tuple(z["display_size"]),
                                            margin=int(z["margin"]))
     check(pdist.init_distributed(f"localhost:{port}", world, rank, backend=backend),
           f"fleet worker {rank}: init_distributed returned False")
     try:
-        mesh = pdist.global_stream_mesh(local_devices=[device] * slots)
+        axes = ("data",) if shape is None else ("data", "space")
+        mesh = pdist.global_stream_mesh(axes, local_devices=[device] * slots, shape=shape)
+        held = local_rows(stream_square_sharding(mesh).local_blocks(n))
+        with np.load(frames_path) as z:
+            refs = np.stack([z[f"ref_{i}"] for i in held])
+            steps = np.stack([z[f"step_{i}"] for i in held])
         local = pdist.distribute_local_streams(mesh, steps)
-        check(local.streams == mine and local.global_shape == (n,) + steps.shape[1:],
-              f"rank {rank}: streams {local.streams} of {local.global_shape}, want {mine}")
+        check(local.streams == held and local.global_shape == (n,) + steps.shape[1:],
+              f"rank {rank}: streams {local.streams} of {local.global_shape}, want {held}")
         ms = tms.MultiStreamPipeline(g, n, mesh=mesh)
+        mine = ms.rows
+        check(ms.frame_rows == held, f"rank {rank}: frame rows {ms.frame_rows}, want {held}")
         state = ms.capture_reference(ms.init_state(), refs)
         state, out = ms.step(state, local.frames)
-        expected = np.load(expected_path)["occ"]
+        expected = np.load(expected_path)
         occ = tms.outputs_to_numpy(out).step.occupancy
         check(out.streams == mine, f"rank {rank}: outputs hold streams {out.streams}, want {mine}")
-        check(np.array_equal(occ, expected[mine.start:mine.stop]),
+        check(np.array_equal(occ, expected["occ"][mine.start:mine.stop]),
               f"rank {rank}: occupancy of streams {mine.start}:{mine.stop} differs from the "
               "expected rows")
+        checked = _check_expected(expected, 0, out, mine, rank)
+        if masks is not None:
+            # Wrong masks for the rows this process does not own: a split
+            # row must run on its owner's.
+            given = masks[held.start:held.stop].copy()
+            foreign = [i - held.start for i in held if i not in mine]
+            given[foreign] = ~given[foreign]
+            state, out = ms.step(state, local.frames, s2c_masks=given)
+            checked += _check_expected(expected, 1, out, mine, rank)
         total = pdist.fleet_sum(out.step.occupancy.to(torch.int32)).cpu().numpy()
-        check(np.array_equal(total, expected.sum(axis=0)),
-              f"rank {rank}: fleet sum of occupancy {total} != expected {expected.sum(axis=0)}")
+        last = f"t{0 if masks is None else 1}_occupancy"  # the last tick's, where given
+        want = expected[last] if last in expected.files else expected["occ"]
+        check(np.array_equal(total, want.sum(axis=0)),
+              f"rank {rank}: fleet sum of occupancy {total} != expected {want.sum(axis=0)}")
         print(f"FLEET-OK rank={rank} streams={mine.start}:{mine.stop} of {n} on "
-              f"{len(ms.slots)} slots ({device}, {torch.distributed.get_backend()}); fleet "
-              f"occupancy sum {int(total.sum())}", flush=True)
+              f"{len(ms.slots)} slots ({device}, {torch.distributed.get_backend()}, mesh "
+              f"{mesh.shape}, frame rows {held.start}:{held.stop}); {checked} expected "
+              f"arrays equal; fleet occupancy sum {int(total.sum())}", flush=True)
     finally:
         torch.distributed.destroy_process_group()
 

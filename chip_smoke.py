@@ -70,7 +70,12 @@ the last line:
    the port's GameSession plays e2e4 through on_frame and must commit it
    and reach the script's FEN.
 5. enhanced path: the same with VisionPipeline(with_enhancer=True) over 32
-   frames, and a session calibrated with "use_enhancer": true.
+   frames, and a session calibrated with "use_enhancer": true. Then the
+   backend seam at the 1080p board: bilateral_backend="plain" within Queue
+   C 7's limits of "kernel" (the bilateral alone and enhance_planar), the
+   clahe(backend=) seam the same way, "kernel" on a CPU tensor raising, a
+   "plain" enhanced pipeline's bool/i32 outputs equal to the kernel
+   pipeline's with no B2 launch.
 6. exact path: VisionPipeline(hough_backend="exact") on HWC host frames: a
    clean frame equals the truth, step_many over 16 frames equals the
    sequential steps, a GameSession on the exact backend commits e2e4, and
@@ -105,6 +110,9 @@ the last line:
    - MultiStreamSession with 8 streams: every stream commits its move and
      reaches its FEN; a checkpoint saved mid-game and resumed into a fresh
      session makes the same commits on the same ticks.
+   - 8 streams with with_change_detector=False beside the default tick:
+     every other output bit-equal, the change fields zeros; ms a tick of
+     both in turns.
 8. mesh path (parallel/mesh.py, the meshed MultiStreamPipeline) on the
    streams phase's 1080p frames, 8 streams, each showing its own first
    move (stream 0: e2e4), on 8 slots spread over the cards
@@ -127,8 +135,14 @@ the last line:
    occupancy equal to its sum (each waited 120 s, killed past it); a
    two-process NCCL fleet where the machine has two cards (else a line
    says why not); then a one-process NCCL group on the card: its
-   all_reduce of the 8 streams' occupancy counts equals their sum. The
-   phase's wall time is printed.
+   all_reduce of the 8 streams' occupancy counts equals their sum. Then a
+   split-row fleet: two Gloo processes on cuda:0, 3 slots each, a mesh of
+   data 3 x space 2, so row 1 spans the processes, 6 streams of 1280x720,
+   two ticks (the second with square masks, given wrong by each process
+   for the rows it does not own): each owner's rows bit-equal to this
+   process's unsharded run in every StepOutputs and FSM field; its wall
+   time, and the same over NCCL where the machine has two cards (else a
+   line says why not). The phase's wall time is printed.
 10. footage path (tools/process_video.py, api.py) on rendered 1920x1080
    frames with piece types (per-square colors, per-type disc radii):
    - process_video.run_capture over a scripted game held in memory (4
@@ -157,6 +171,10 @@ the last line:
      (CLAHE's 135x240 tiles at 1080p; the odd width takes the apply's byte
      path), the output within ROADMAP Queue C 7's limits of the same call on
      the CPU; ms a call at each shape.
+   - PieceDetectorModel on the card: calibrate_reference on the start
+     position, get_occupied_squares on the e2e4 frame equals the truth.
+   - native.HostResampler, built with g++ here, on the 1080p board plan:
+     bit-equal to the port's board warp on the card; ms a frame.
 
 11. live path (tools/play_lichess.py, session/lichess_session.py,
    session/drift.py, native.FrameRing) at 1280x720, the live driver's
@@ -212,6 +230,14 @@ the last line:
    Each line gives ms a frame (host clock), ms a rebuild (plan build and
    reference capture apart) and the launches.
 
+13. ablation (tools/ablate_enhanced.py at 980^2): B2-B4 in full and with
+   parts taken out (extra instantiations of the same kernels), the LUT
+   phase, device copies of the same bytes and an empty kernel's launch, by
+   held-stream CUDA events over chained calls; then the production B2-B4
+   times of phase 3 beside those PERF.md's kernel table recorded before the
+   ablation instantiations were added, a "FLAG" line where one moved by
+   more than 15%. Its launches are on no main path.
+
 A step's or tick's device busy time and ops (exact, streams) are
 torch.profiler's records summed over a window padded with sleep kernels
 on both sides, printed with the records seen against the launches
@@ -262,6 +288,8 @@ from chessboard_vision_tpu_torch.kernels import build_all
 from chessboard_vision_tpu_torch.kernels import clahe as kc
 from chessboard_vision_tpu_torch.kernels import score_matmul as sm
 from chessboard_vision_tpu_torch.models import pipeline as tp
+from chessboard_vision_tpu_torch.models import PieceDetectorModel
+from chessboard_vision_tpu_torch.models import enhancer as tenhancer
 from chessboard_vision_tpu_torch.models.enhancer import correct_lighting
 from chessboard_vision_tpu_torch.ops import enhance as tenh
 from chessboard_vision_tpu_torch.ops import warp as warp_ops
@@ -282,6 +310,8 @@ from chessboard_vision_tpu_torch.rules.fen import occupancy_to_fen
 from chessboard_vision_tpu_torch.rules.pgn import game_to_pgn
 from chessboard_vision_tpu_torch.session.game_session import GameSession
 from chessboard_vision_tpu_torch.session.lichess_session import LichessSession
+from chessboard_vision_tpu_torch import native
+from chessboard_vision_tpu_torch.tools import ablate_enhanced
 from chessboard_vision_tpu_torch.tools import dryrun_multigpu, play_lichess, process_video
 from chessboard_vision_tpu_torch.tools.demo_pipeline import calibrated_session, occupancy_of, play
 from chessboard_vision_tpu_torch.utils import checkpoint as ckpt
@@ -601,7 +631,8 @@ def build_phase():
         for line in result.log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 phase("build", f"{name}: {line.strip()}")
-    sass_counts(results["bilateral"].path, "bilateral_kernel", "VABSDIFF4")
+    # The production instantiation (bilateral_kernel<kFull>), not an ablation variant's.
+    sass_counts(results["bilateral"].path, "bilateral_kernelILi0EE", "VABSDIFF4")
 
 
 def sass_counts(lib, kernel, per):
@@ -2975,13 +3006,267 @@ def ui_phase(smi):
     return counts, err
 
 
+# ---------------------------------------------------------------------------
+# The port's parity with the JAX package: the change detector switched off,
+# the enhancer's backend seam, PieceDetectorModel, the host resampler, the
+# split-row fleet and the enhanced-path kernel ablation.
+# ---------------------------------------------------------------------------
+
+CHANGE_FIELDS = {"change_intensity": np.int32, "change_pct": np.float32,
+                 "change_z_peak": np.float32}
+# Queue C 7: after the sharpen a pixel may differ by up to 9 levels on at
+# most 1e-3 of the pixels; the bilateral alone by one level on 1e-4.
+ENHANCE_MAX_DIFF, ENHANCE_FRACTION = 9, 1e-3
+BILATERAL_MAX_DIFF, BILATERAL_FRACTION = 1, 1e-4
+SPLIT_SHAPE, SPLIT_STREAMS, SPLIT_SLOTS = (3, 2), 6, 3
+# The production B2-B4 at 980^2, µs a call, as PERF.md's kernel table
+# recorded them before the ablation instantiations were added (chip_smoke's
+# kernel phase, NVIDIA H100 80GB HBM3, 700 W). Those instantiations leave
+# the production ones' code as it was.
+RECORDED_US = {"bilateral": 29.8, "clahe_hist": 4.1, "clahe_apply": 3.9}
+MOVED_SHARE = 0.15
+
+
+def _within(a, b, max_diff, fraction, what):
+    d = (a.to(torch.int32) - b.to(torch.int32)).abs()
+    share = (d > 0).float().mean().item()
+    check(int(d.max()) <= max_diff and share <= fraction,
+          f"{what}: max diff {int(d.max())}, {share:.3g} of pixels differ")
+    return int(d.max()), share
+
+
+def change_off_phase(g, frames, smi):
+    """8 streams with with_change_detector=False beside the default tick on
+    the same frames: every other output bit-equal (the occupancy among
+    them), the change fields zeros of i32/f32/f32, B1 once a tick; then ms
+    a tick of both in turns (default, off, off, default). Returns the
+    path's counts."""
+    sets, initial, _ = frames
+    n = 8
+    refs = np.stack([initial[s % 3] for s in range(n)])
+    frame_sets = [np.stack(fs[:n]) for fs in sets]
+    masks = _all_masks(n)
+    launches = collections.Counter()
+    pipes = {"default": tms.MultiStreamPipeline(g, n, device=DEVICE),
+             "no change detector": tms.MultiStreamPipeline(g, n, with_change_detector=False,
+                                                           device=DEVICE)}
+    states, hosts = {}, {}
+    for label, ms in pipes.items():
+        with counted(launches):
+            st = ms.capture_reference(ms.init_state(), refs)
+        with counted(launches) as got:
+            st, out = ms.step(st, frame_sets[0], s2c_masks=masks)
+        check_tick(got, n, f"{label} 8 streams")
+        states[label], hosts[label] = st, tms.outputs_to_numpy(out)
+    a, b = hosts["default"], hosts["no change detector"]
+    for f in tp.StepOutputs._fields:
+        x, y = getattr(b.step, f), getattr(a.step, f)
+        if f in CHANGE_FIELDS:
+            check(x.dtype == CHANGE_FIELDS[f] and not x.any(), f"change detector off: {f} not 0")
+        else:
+            check(x.dtype == y.dtype and np.array_equal(x, y),
+                  f"change detector off: {f} differs from the default tick")
+    for f in a.noise._fields:
+        check(np.array_equal(getattr(a.noise, f), getattr(b.noise, f)),
+              f"change detector off: noise {f} differs")
+    walls = collections.defaultdict(list)
+    for label in ("default", "no change detector", "no change detector", "default"):
+        with counted(launches):
+            wall, states[label] = mesh_tick_ms(pipes[label], states[label], frame_sets, masks)
+        walls[label].append(wall)
+    text = "; ".join(f"{k} {np.mean(v):.3f} ms/tick ({', '.join(f'{w:.3f}' for w in v)})"
+                     for k, v in walls.items())
+    phase("streams", f"8 streams with_change_detector=False: occupancy and every other output "
+          f"bit-equal to the default tick, change fields zeros; in turns: {text}; on {smi}")
+    return {name: launches[name] for name in COUNTERS}
+
+
+def backend_seam_phase(pipe, frame, smi):
+    """The enhancer's backend seam on the card at the 1080p board:
+    bilateral_backend="plain" within Queue C 7's limits of "kernel" (the
+    bilateral alone and the whole enhancement), the clahe(backend=) seam
+    the same way, "kernel" on a CPU tensor raising, and an enhanced
+    pipeline on "plain" giving the kernel pipeline's bool/i32 outputs
+    without a B2 launch."""
+    board = warp_ops.frame_to_board(on_card(frame), pipe.consts.dg).movedim(-1, -3).contiguous()
+    lit = correct_lighting(board)
+    got = {b: tenhancer.bilateral(lit, b) for b in ("kernel", "plain")}
+    bil = _within(got["plain"], got["kernel"], BILATERAL_MAX_DIFF, BILATERAL_FRACTION,
+                  "bilateral plain vs kernel")
+    whole = {b: tenhancer.enhance_planar(board, pipe.enhancer_profile, bilateral_backend=b)
+             for b in ("kernel", "plain")}
+    enh = _within(whole["plain"], whole["kernel"], ENHANCE_MAX_DIFF, ENHANCE_FRACTION,
+                  "enhance_planar plain vs kernel")
+    lab_l = planar_bgr2lab(board)[0].contiguous()
+    check(torch.equal(tenh.clahe(lab_l, backend="plain"), tenh.clahe(lab_l, backend="kernel")),
+          "clahe plain != kernel on the card")
+    for what, call in (("bilateral", lambda: tenhancer.bilateral(lit.cpu(), "kernel")),
+                       ("clahe", lambda: tenh.clahe(lab_l.cpu(), backend="kernel"))):
+        try:
+            call()
+        except ValueError as e:
+            check("cpu" in str(e), f"{what}: 'kernel' on a CPU tensor raised {e}")
+        else:
+            raise RuntimeError(f"{what}: backend='kernel' on a CPU tensor did not raise")
+    g = pipe.geometry
+    outs = {}
+    for b in ("kernel", "plain"):
+        p = tp.VisionPipeline(g, with_enhancer=True, bilateral_backend=b, device=DEVICE)
+        st = p.capture_reference(p.init_state(), frame)
+        before = kb.bilateral_planar.launches
+        st, o = p.step(st, frame)
+        outs[b] = tp.outputs_to_numpy(o)
+        launched = kb.bilateral_planar.launches - before
+        check(launched == (1 if b == "kernel" else 0), f"{b} pipeline: {launched} B2 launches")
+    for f in EXACT_FIELDS:
+        check(np.array_equal(getattr(outs["plain"], f), getattr(outs["kernel"], f)),
+              f"enhanced pipeline bilateral_backend='plain': {f} differs from 'kernel'")
+    ms_plain = cuda_ms(lambda: tenhancer.bilateral(lit, "plain"), 5)
+    ms_kernel = cuda_ms(lambda: tenhancer.bilateral(lit, "kernel"), 20)
+    phase("enhanced", f"backend seam at {tuple(board.shape)}: bilateral 'plain' vs 'kernel' max "
+          f"diff {bil[0]} on {bil[1]:.3g} of pixels, enhance_planar {enh[0]} on {enh[1]:.3g} "
+          "(Queue C 7's limits), clahe 'plain' == 'kernel', 'kernel' on a CPU tensor raises, "
+          "the 'plain' pipeline's bool/i32 outputs equal the kernel pipeline's with no B2 "
+          f"launch; bilateral plain {ms_plain:.3f} ms vs kernel {ms_kernel:.4f} ms a call "
+          f"(CUDA events); on {smi}")
+
+
+def piece_model_phase(corners, camera, smi):
+    """PieceDetectorModel on the card (exact Hough, as the JAX model):
+    calibrate_reference on the start position's squares, then
+    get_occupied_squares on the rendered e2e4 frame equals the truth. The
+    moving pawn is rendered dark, as the ui phase's: a light pawn on light
+    e2 and e4 passes the reference's delta gate unseen (Queue C 5), and
+    after calibrate_reference the model reports its cache wherever the
+    gate stays shut."""
+    start, moved = _boards("e2e4")
+    g = BoardGeometry.from_calibration(corners, display_size=(WIDTH, HEIGHT))
+    pipe = tp.VisionPipeline(g, device=DEVICE)  # its preprocess gives the squares
+    squares = []
+    for i, (board, pawn) in enumerate(((start, (4, 1)), (moved, (4, 3)))):
+        occ, colors, radii = board_render_maps(board)
+        colors[pawn] = DARK_PIECE
+        frame = camera.render(occ, np.random.default_rng((22, i)), colors, radii)
+        squares.append(pipe.preprocess(on_card(frame))[0])
+    model = PieceDetectorModel(g.squares.heights, g.squares.widths, device=DEVICE)
+    t0 = time.perf_counter()
+    model.calibrate_reference(squares[0])
+    got = model.get_occupied_squares(squares[1])
+    wall = (time.perf_counter() - t0) * 1e3
+    truth = _occ_set(occupancy_of(moved))
+    check(got == truth, f"PieceDetectorModel: {sorted(got ^ truth)} differ from the truth")
+    phase("footage", f"PieceDetectorModel on the card: calibrate_reference on the start "
+          f"position, get_occupied_squares on e2e4 equals the truth; {wall:.1f} ms for both "
+          f"(host clock, exact Hough); on {smi}")
+
+
+def host_resampler_phase(pipe, frame, smi):
+    """native.HostResampler built here (g++) on the 1080p board plan:
+    resample_bgr bit-equal to the port's board warp on the card
+    (warp_board: the gather warp run op by op), resample_gray to its cv2
+    gray; to_planar_native equal to to_planar; ms a frame (host clock,
+    median of 5)."""
+    g = pipe.geometry
+    t0 = time.perf_counter()
+    host = native.HostResampler(g.warp_X, g.warp_Y, g.src_h, g.src_w)
+    built = time.perf_counter() - t0
+    board = pipe.warp_board(frame)
+    for c, got in enumerate(host.resample_bgr(frame)):
+        check(np.array_equal(got, board[..., c].reshape(-1)),
+              f"HostResampler channel {c} differs from the card's board warp")
+    gray = bgr2gray(torch.as_tensor(board, device=DEVICE)).cpu().numpy().reshape(-1)
+    check(np.array_equal(host.resample_gray(frame), gray),
+          "HostResampler gray differs from the card's board warp and gray")
+    check(np.array_equal(native.to_planar_native(frame), to_planar(frame)),
+          "to_planar_native != to_planar")
+    ms = {}
+    for label, fn in (("resample_gray", lambda: host.resample_gray(frame)),
+                      ("resample_bgr", lambda: host.resample_bgr(frame)),
+                      ("to_planar_native", lambda: native.to_planar_native(frame)),
+                      ("warp_board on the card, D2H included", lambda: pipe.warp_board(frame))):
+        ms[label] = call_ms(fn)
+    phase("footage", f"HostResampler (built with the plan in {built:.2f} s) on the "
+          f"{g.board_size}^2 board plan of a {WIDTH}x{HEIGHT} frame: bit-equal to the card's "
+          f"board warp; ms a frame " + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+          + f"; on {smi}")
+
+
+def split_fleet_phase(smi):
+    """A fleet whose data row 1 spans two processes: 2 Gloo processes on
+    cuda:0, SPLIT_SLOTS slots each, data 3 x space 2, 6 streams of 1280x720,
+    two ticks (the second with square masks, which each process gives
+    wrong for the rows it does not own): each owner's rows bit-equal, every
+    StepOutputs and FSM field, to this process's unsharded run. Then the
+    same over NCCL where the machine has two cards."""
+    g, camera = dryrun_multigpu.rig((720, 1280), margin=100)
+    refs, steps = dryrun_multigpu.stream_frames(camera, SPLIT_STREAMS, seed=21)
+    masks = np.stack([positions_to_mask({(s % 8, 1), (s % 8, 3), (0, 0)})
+                      for s in range(SPLIT_STREAMS)])
+    ms = tms.MultiStreamPipeline(g, SPLIT_STREAMS, device=DEVICE)
+    state = ms.capture_reference(ms.init_state(), refs)
+    expected = {"rtol": 0.0, "atol": 0.0}
+    for t in range(2):
+        state, out = ms.step(state, steps, s2c_masks=masks if t else None)
+        host = tms.outputs_to_numpy(out)
+        expected.update({f"t{t}_{f}": getattr(host.step, f) for f in host.step._fields})
+        expected.update({f"t{t}_noise_{f}": getattr(host.noise, f) for f in host.noise._fields})
+    expected["occ"] = expected["t0_occupancy"]
+    with tempfile.TemporaryDirectory() as tmp:
+        frames_path, expected_path = os.path.join(tmp, "split.npz"), os.path.join(tmp, "exp.npz")
+        dryrun_multigpu.save_fleet(frames_path, refs, steps, g, 100, SPLIT_SLOTS,
+                                   shape=SPLIT_SHAPE, masks=masks)
+        np.savez(expected_path, **expected)
+        wall = fleet_launch(frames_path, expected_path, ["cuda:0", "cuda:0"], "gloo",
+                            "split-row gloo fleet")
+        phase("fleet", f"split-row gloo fleet: 2 processes on cuda:0, data 3 x space 2 over "
+              f"{2 * SPLIT_SLOTS} slots, row 1 across the processes, {SPLIT_STREAMS} streams of "
+              f"1280x720, 2 ticks: each owner's rows bit-equal to the unsharded run in every "
+              f"field; {wall:.2f} s wall from launch to exit; on {smi}")
+        if torch.cuda.device_count() >= 2:
+            wall = fleet_launch(frames_path, expected_path, ["cuda:0", "cuda:1"], "nccl",
+                                "split-row nccl fleet")
+            phase("fleet", f"split-row nccl fleet: 2 processes on cuda:0 and cuda:1, "
+                  f"{wall:.2f} s wall")
+        else:
+            phase("fleet", "split-row NCCL fleet not run: it needs a card a process and this "
+                  f"machine has {torch.cuda.device_count()} (NCCL refuses two ranks on one card)")
+
+
+def ablation_phase(records, smi):
+    """tools/ablate_enhanced.py at 980^2 (its table lines here), then the
+    production B2-B4 device times of the kernel phase beside RECORDED_US:
+    a "FLAG" line where one moved by more than MOVED_SHARE."""
+    args = ablate_enhanced.parse_args(["--size", "980", "--iters", "100", "--passes", "3"])
+    values, unheld = ablate_enhanced.run(args)
+    for name, us in values.items():
+        phase("ablation", f"{name}: {us:.2f} us/call"
+              + (" (unheld: events around the chain)" if name in unheld else ""))
+    for group in ("hist", "apply"):
+        phase("ablation", f"{group}: the empty kernel's launch {values['empty/launch']:.2f} us is "
+              f"{values['empty/launch'] / values[f'{group}/full']:.0%} of its full "
+              f"{values[f'{group}/full']:.2f} us")
+    ratios = []
+    for cut in ("full", "notable"):
+        rnd, board = values[f"bilateral/{cut}@random"], values[f"bilateral/{cut}@board"]
+        ratios.append(f"{cut} {rnd:.2f} / {board:.2f} us ({rnd / board:.3f}x)")
+    phase("ablation", f"bilateral on random u8 / a rendered board: {', '.join(ratios)}")
+    for rec in records:
+        if rec["name"] in RECORDED_US:
+            us, was = rec["ms"] * 1e3, RECORDED_US[rec["name"]]
+            moved = abs(us - was) > MOVED_SHARE * was
+            phase("ablation", f"{'FLAG: ' if moved else ''}production {rec['name']} "
+                  f"{us:.2f} us/call (kernel phase) beside PERF.md's recorded {was} us "
+                  f"({us / was:.3f}x); on {smi}")
+    print(json.dumps({"ablation": values, "unheld": unheld, "card": smi}), flush=True)
+
+
 def main():
     t_start = time.perf_counter()
 
     def elapsed(what):
         phase("time", f"{what} done at {time.perf_counter() - t_start:.0f} s")
 
-    name, smi = device_phase()
+    _, smi = device_phase()
     build_phase()
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions in full f32
     rng = np.random.default_rng(0)
@@ -3017,6 +3302,7 @@ def main():
           f"(histograms + LUTs), {enhanced['clahe_hist']} histogram-only and "
           f"{enhanced['clahe_apply']} B4 launches, not one B3 and one B4 each")
     phase("enhanced", f"{n} CLAHE calls, each one B3 and one B4 launch")
+    backend_seam_phase(pipe, frame, smi)
     elapsed("plain and enhanced paths")
     exact_phase(corners, camera, rng, smi)
     elapsed("exact path")
@@ -3026,6 +3312,8 @@ def main():
     check(not missing, f"the streams path never launched {missing}")
     check(streams["clahe_hist"] == 0, "the streams path launched the histogram-only B3")
     records[0]["max_abs_err"] = max(records[0]["max_abs_err"], b1_wide_err)
+    for wrapper, count in change_off_phase(g, stream_frames, smi).items():
+        streams[wrapper] += count
     elapsed("streams path")
 
     t0 = time.perf_counter()
@@ -3037,6 +3325,7 @@ def main():
     phase("time", f"mesh phase took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     fleet_phase(smi)
+    split_fleet_phase(smi)
     phase("time", f"fleet phase took {time.perf_counter() - t0:.1f} s")
     elapsed("mesh and fleet paths")
 
@@ -3044,6 +3333,8 @@ def main():
     missing = [k for k in COUNTERS if k != "clahe_hist" and footage[k] == 0]
     check(not missing, f"the footage path never launched {missing}")
     check(footage["clahe_hist"] == 0, "the footage path launched the histogram-only B3")
+    piece_model_phase(corners, camera, smi)
+    host_resampler_phase(pipe, frame, smi)
     elapsed("footage path")
 
     live = live_phase(smi)
@@ -3058,6 +3349,8 @@ def main():
     check(ui["clahe_hist"] == 0, "the ui path launched the histogram-only B3")
     records[0]["max_abs_err"] = max(records[0]["max_abs_err"], ui_err)
     elapsed("ui path")
+    ablation_phase(records, smi)
+    elapsed("ablation")
 
     for rec in records:
         w = PATH_WRAPPER.get(rec["name"], rec["name"])
@@ -3067,7 +3360,8 @@ def main():
             "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: rec[k] for k in keys} for rec in records]}), flush=True)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
     }}), flush=True)
 
 

@@ -415,3 +415,83 @@ def test_synth_camera_board_through_the_enhancer_keeps_its_shape():
     out = tenh_model.enhance_planar(board)
     assert out.shape == board.shape and out.dtype == torch.uint8
     assert int(out.min()) == 0 and int(out.max()) == 255
+
+
+# ---------------------------------------------------------------------------
+# The backend seam: "auto", "kernel", "plain"
+# ---------------------------------------------------------------------------
+
+# The port's backend -> the JAX package's on the CPU ("plain" is its XLA form).
+JAX_BACKEND = {"plain": "xla", "auto": "auto"}
+TINY = [(3, 4, 6), (3, 3, 3), (3, 2, 9)]
+
+
+@pytest.mark.parametrize("backend", ["plain", "auto"])
+@pytest.mark.parametrize("shape", [(3, 64, 96)] + TINY)
+def test_bilateral_backends_vs_jax(backend, shape):
+    """bilateral(backend) on the CPU vs the JAX package's: "plain" and
+    "auto" both take the plain version here, as the JAX "xla" and "auto"
+    take XLA off the TPU; within one level, as the plain version is held
+    to the Pallas kernel. Tiny images (H <= 4, a border wider than the
+    image) reflect again, as numpy's and OpenCV's reflect-101 do."""
+    img = np.random.default_rng(sum(shape)).integers(0, 256, shape, np.uint8)
+    want = np.asarray(jax.jit(functools.partial(jenh_model.bilateral,
+                                                backend=JAX_BACKEND[backend]))(img))
+    got = tenh_model.bilateral(_t(img), backend).numpy()
+    fraction = ONE_LEVEL_FRACTION if shape[1] > 4 else 1.0 / img.size
+    assert_within_one_level(got, want, fraction=fraction, what=f"bilateral {backend} {shape}")
+
+
+# The JAX package's XLA CLAHE apply mixes the LUTs by a matmul and rounds
+# a few pixels to the other side of a half: within one level of its Pallas
+# kernel (5.9e-4 of the pixels of a 61 x 83 image), which the port follows
+# bit for bit.
+JAX_XLA_CLAHE_FRACTION = 1e-3
+
+
+@pytest.mark.parametrize("backend", ["plain", "auto"])
+@pytest.mark.parametrize("shape", [(61, 83), (4, 6), (3, 3), (2, 9)])
+def test_clahe_backends_vs_jax(backend, shape):
+    """clahe(backend=) on the CPU vs the JAX package's "xla" / "auto"
+    (within one level, as its XLA form is of its Pallas kernels), and bit
+    for bit vs its Pallas kernels where they take the shape; at tiny
+    shapes too (tiles of one pixel, a reflect pad wider than the image)."""
+    img = np.random.default_rng(sum(shape)).integers(0, 256, shape, np.uint8)
+    got = tenh.clahe(_t(img), backend=backend).numpy()
+    want = np.asarray(jenh.clahe(img, 3.0, 8, backend=JAX_BACKEND[backend]))
+    assert_within_one_level(got, want, fraction=JAX_XLA_CLAHE_FRACTION, what=f"clahe {shape}")
+    if min(shape) >= 8:
+        with pltpu.force_tpu_interpret_mode():
+            want = np.asarray(jenh.clahe(img, 3.0, 8, backend="pallas"))
+        np.testing.assert_array_equal(got, want)
+
+
+def test_backend_kernel_on_the_cpu_and_unknown_backends_raise():
+    """"kernel" runs the CUDA kernel and raises for a CPU tensor, naming its
+    device; an unknown backend raises as the JAX package's does. Nothing
+    falls back."""
+    img = torch.zeros((3, 16, 16), dtype=torch.uint8)
+    for call in (lambda b: tenh_model.bilateral(img, b), lambda b: tenh.clahe(img[0], backend=b),
+                 lambda b: tenh_model.enhance_planar(img, bilateral_backend=b),
+                 lambda b: tenh_model.ImageEnhancer(bilateral_backend=b, device="cpu")
+                 .reduce_noise(np.zeros((16, 16, 3), np.uint8))):
+        with pytest.raises(ValueError, match="backend='kernel'.*cpu"):
+            call("kernel")
+        with pytest.raises(ValueError, match="unknown"):
+            call("pallas")
+    with pytest.raises(ValueError, match="unknown bilateral backend"):
+        jenh_model.bilateral(jnp.asarray(np.asarray(img)), "kernel")
+
+
+def test_image_enhancer_bilateral_backend_vs_jax():
+    """ImageEnhancer(bilateral_backend="plain") on the CPU against the JAX
+    ImageEnhancerTPU(bilateral_backend="xla"): reduce_noise within one
+    level, and process_planar equal to process_pipeline."""
+    frame = np.ascontiguousarray(np.moveaxis(_board(5), 0, -1))
+    port = tenh_model.ImageEnhancer(bilateral_backend="plain", device="cpu")
+    jax_enh = jenh_model.ImageEnhancerTPU(bilateral_backend="xla")
+    assert_within_one_level(port.reduce_noise(frame), jax_enh.reduce_noise(frame),
+                            what="reduce_noise")
+    planar = port.process_planar(_t(np.moveaxis(frame, -1, 0)))
+    np.testing.assert_array_equal(np.moveaxis(planar.numpy(), 0, -1),
+                                  port.process_pipeline(frame))

@@ -436,3 +436,70 @@ def test_enhanced_pipeline_on_card_matches_cpu(cuda):
                 np.testing.assert_array_equal(y, x, err_msg=f)
     truth = {(f, r) for f in range(8) for r in range(8) if occ[f, r]}
     assert tp.occupancy_to_set(outs["cuda"][-1].occupancy) == truth
+
+
+@pytest.mark.parametrize("group", ["bilateral", "hist", "apply", "empty"])
+def test_ablation_variants_launch(cuda, group):
+    """tools/ablate_enhanced's instantiations: variant 0 (the production
+    kernel through the variant entry) bit-equal to the plain version and
+    to the wrapper; every other variant launches on the 980 x 980 shapes
+    and writes its output's shape."""
+    from chessboard_vision_tpu_torch.tools import ablate_enhanced as ab
+
+    var = ab.Variants()
+    g = torch.Generator(device=cuda).manual_seed(7)
+    size, tiles = 980, ab.TILES
+    th = tw = -(-size // tiles)
+    clip = max(int(ab.CLIP_LIMIT * th * tw / 256), 1)
+    if group == "bilateral":
+        img = torch.randint(0, 256, (3, size, size), dtype=torch.uint8, device=cuda, generator=g)
+        assert torch.equal(var.bilateral(0, img), kb.bilateral_reference(img))
+        assert torch.equal(var.bilateral(0, img), kb.bilateral_planar(img))
+        for v in ab.BILATERAL_VARIANTS.values():
+            assert var.bilateral(v, img).shape == img.shape
+    elif group == "hist":
+        img = torch.randint(0, 256, (size, size), dtype=torch.uint8, device=cuda, generator=g)
+        hist = torch.empty((tiles * tiles, 256), dtype=torch.int32, device=cuda)
+        luts = torch.empty((tiles * tiles, 256), dtype=torch.float32, device=cuda)
+        want_h, want_l = kc.clahe_hist_luts_reference(img, th, tw, tiles, clip)
+        var.hist(0, img, th, tw, clip, hist, luts)
+        assert torch.equal(hist, want_h) and torch.equal(luts, want_l)
+        for v in ab.HIST_VARIANTS.values():
+            var.hist(v, img, th, tw, clip, hist, luts)
+        torch.cuda.synchronize()
+    elif group == "apply":
+        img = torch.randint(0, 256, (size, size), dtype=torch.uint8, device=cuda, generator=g)
+        luts = torch.randint(0, 256, (tiles * tiles, 256), device=cuda, generator=g).float()
+        assert torch.equal(var.apply(0, img, luts, th, tw),
+                           kc.clahe_apply_reference(img, luts, th, tw, tiles))
+        assert torch.equal(var.apply(ab.APPLY_VARIANTS["copy"], img, luts, th, tw), img)
+        for v in ab.APPLY_VARIANTS.values():
+            assert var.apply(v, img, luts, th, tw).shape == img.shape
+    else:
+        var.empty()
+        torch.cuda.synchronize()
+
+
+def test_enhancer_backends_on_card(cuda):
+    """The backend seam on the card: "plain" runs the plain versions,
+    bit-equal to the kernels ("kernel", and "auto" on the card), and
+    launches nothing; a shape a kernel refuses raises under "auto" and
+    "kernel" instead of falling back."""
+    from chessboard_vision_tpu_torch.models import enhancer as tenhancer
+
+    g = torch.Generator(device=cuda).manual_seed(8)
+    img = torch.randint(0, 256, (3, 96, 128), dtype=torch.uint8, device=cuda, generator=g)
+    before = (kb.bilateral_planar.launches, kc.clahe_hist_luts.launches, kc.clahe_apply.launches)
+    plain = (tenhancer.bilateral(img, "plain"), tenh.clahe(img[0], backend="plain"))
+    assert (kb.bilateral_planar.launches, kc.clahe_hist_luts.launches,
+            kc.clahe_apply.launches) == before
+    for backend in ("kernel", "auto"):
+        assert torch.equal(tenhancer.bilateral(img, backend), plain[0])
+        assert torch.equal(tenh.clahe(img[0], backend=backend), plain[1])
+    tiny = img[:, :4, :4].contiguous()
+    for backend in ("kernel", "auto"):
+        with pytest.raises(ValueError):
+            tenhancer.bilateral(tiny, backend)
+        with pytest.raises(ValueError):
+            tenh.clahe(tiny[0], backend=backend)
+    assert tenhancer.bilateral(tiny, "plain").shape == tiny.shape

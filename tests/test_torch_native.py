@@ -111,3 +111,76 @@ def test_failed_build_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(native, "BUILD_DIR", str(tmp_path / "_build"))
     with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
         native.build()
+
+
+# ---------------------------------------------------------------------------
+# The host resampler and the HWC -> planar conversion (src/cbv_resample.cpp)
+# ---------------------------------------------------------------------------
+
+CORNERS = np.array([[173, 133], [1100, 110], [150, 650], [1131, 680]])  # tests/test_native.py's
+
+
+@pytest.fixture(scope="module")
+def resample_case():
+    from chessboard_vision_tpu import geometry as jgeo
+    from chessboard_vision_tpu_torch import geometry as tgeo
+
+    frame = np.random.default_rng(61).integers(0, 256, (720, 1280, 3), np.uint8)
+    return (frame, jgeo.BoardGeometry.from_calibration(CORNERS),
+            tgeo.BoardGeometry.from_calibration(CORNERS))
+
+
+def test_host_resampler_equals_jax_static_resample(resample_case):
+    """resample_gray / resample_bgr on the square query plan, bit-equal to
+    the JAX package's static_resample (as tests/test_native.py holds the
+    JAX resampler) and to the JAX native resampler where it built."""
+    import jax.numpy as jnp
+    from chessboard_vision_tpu.ops import static_resample as sr
+
+    frame, jg, tg = resample_case
+    qx, qy = tg.square_query_coords()
+    host = native.HostResampler(qx, qy, tg.src_h, tg.src_w)
+    plan = sr.ResamplePlan.build(*jg.square_query_coords(), jg.src_h, jg.src_w)
+    b, g, r = (np.asarray(x) for x in sr.resample_bgr(jnp.asarray(sr.to_planar(frame)), plan,
+                                                        jg.src_w))
+    x = np.stack([b, g, r]).astype(np.int64)
+    gray = ((x[2] * 9798 + x[1] * 19235 + x[0] * 3735 + (1 << 14)) >> 15).astype(np.uint8)
+    got_b, got_g, got_r = host.resample_bgr(frame)
+    for got, want in ((got_b, b), (got_g, g), (got_r, r)):
+        np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(host.resample_gray(frame), gray)
+    if jnative.AVAILABLE:
+        jhost = jnative.HostResampler(*jg.square_query_coords(), jg.src_h, jg.src_w)
+        np.testing.assert_array_equal(host.resample_gray(frame), jhost.resample_gray(frame))
+        for got, want in zip(host.resample_bgr(frame), jhost.resample_bgr(frame)):
+            np.testing.assert_array_equal(got, want)
+
+
+def test_host_resampler_equals_the_ports_board_warp(resample_case):
+    """On the board warp's maps the host resampler is the port's gather
+    warp run op by op (warp_bilinear(contract=False), warp_board's)."""
+    import torch
+
+    from chessboard_vision_tpu_torch.ops import warp as twarp
+
+    frame, _, tg = resample_case
+    host = native.HostResampler(tg.warp_X, tg.warp_Y, tg.src_h, tg.src_w)
+    dg = twarp.DeviceGeometry.from_host(tg)
+    board = twarp.frame_to_board(torch.as_tensor(frame), dg, contract=False).numpy()
+    for c, got in enumerate(host.resample_bgr(frame)):
+        np.testing.assert_array_equal(got, board[..., c].reshape(-1))
+
+
+def test_to_planar_native_and_bad_frames(resample_case):
+    from chessboard_vision_tpu_torch.ops.layout import to_planar
+
+    frame, _, tg = resample_case
+    out = native.to_planar_native(frame)
+    np.testing.assert_array_equal(out, to_planar(frame))
+    if jnative.AVAILABLE:
+        np.testing.assert_array_equal(out, jnative.to_planar_native(frame))
+    host = native.HostResampler(tg.warp_X, tg.warp_Y, tg.src_h, tg.src_w)
+    with pytest.raises(ValueError, match="HWC frames"):
+        host.resample_gray(frame[:100])
+    with pytest.raises(ValueError, match=r"\(H, W, 3\)"):
+        native.to_planar_native(frame[..., 0])

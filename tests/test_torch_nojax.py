@@ -6,7 +6,9 @@ imports every module of the port and runs one plain and one enhanced
 pipeline step (conv Hough, planar frames), one exact-backend step on an
 HWC tensor (the gather warp), one 2-stream tick, ``api.frame_to_fen``, a
 recorded game through ``process_video.run_capture`` fed from memory, the
-cv2-free corner detector and the frame ring, on the CPU on frames from the
+cv2-free corner detector, the frame ring, the host resampler and
+``to_planar_native``, the bilateral's "plain" backend, a step without the
+change detector and ``PieceDetectorModel``, on the CPU on frames from the
 numpy-only renderer (tools/synth.py), with the geometry from the port's
 own copy. The port's copies of the JAX package's host modules
 (``geometry``, ``rules``) give the same arrays, moves and FEN as the
@@ -65,7 +67,7 @@ for name in ("ops.fsm", "ops.hough", "ops.warp", "parallel", "parallel.multistre
              "tools.calibration_module", "tools.calibrate_piece_detector",
              "tools.calibrate_sensitivity", "tools.calibrate_colors", "tools.enhance_demo",
              "reference", "reference.replay_session", "parallel.mesh", "parallel.distributed",
-             "tools.dryrun_multigpu"):
+             "tools.dryrun_multigpu", "tools.ablate_enhanced", "models"):
     assert port.__name__ + "." + name in names, name
 
 from chessboard_vision_tpu_torch import geometry as geo
@@ -130,6 +132,24 @@ assert ring.push(np.arange(6, dtype=np.uint8).reshape(2, 3)) == 1
 seq, got = ring.pop()
 assert seq == 1 and got.tolist() == [[0, 1, 2], [3, 4, 5]] and ring.pop() == (0, None)
 ring.close()
+from chessboard_vision_tpu_torch.models import PieceDetectorModel
+from chessboard_vision_tpu_torch.models.enhancer import bilateral
+from chessboard_vision_tpu_torch.native import HostResampler, to_planar_native
+frame = cam.render(occ, rng)
+assert np.array_equal(to_planar_native(frame), to_planar(frame))
+board = HostResampler(g.warp_X, g.warp_Y, 720, 1280).resample_gray(frame)
+assert board.shape == (g.board_size ** 2,)
+plain = bilateral(torch.as_tensor(to_planar(frame))[:, :64, :64], "plain")
+assert plain.shape == (3, 64, 64)
+nochange = VisionPipeline(g, hough_backend="conv", with_change_detector=False, device="cpu")
+state = nochange.capture_reference(nochange.init_state(), to_planar(frame))
+state, out = nochange.step(state, to_planar(cam.render(occ, rng)))
+out = outputs_to_numpy(out)
+assert occupancy_to_set(out.occupancy) == truth and not out.change_intensity.any()
+squares = nochange.preprocess(torch.as_tensor(to_planar(frame)))[0]
+model = PieceDetectorModel(g.squares.heights, g.squares.widths, device="cpu")
+model.calibrate_reference(squares)
+assert model.get_occupied_squares(squares) == truth
 assert not any(m == "jax" or m.startswith(("jax.", "jaxlib", "cv2", "chessboard_vision_tpu.",
                                            "requests"))
                for m in sys.modules if sys.modules[m] is not None)
