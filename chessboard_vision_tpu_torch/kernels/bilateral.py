@@ -19,6 +19,7 @@ import threading
 import numpy as np
 import torch
 
+from chessboard_vision_tpu_torch.device import resolve_device
 from chessboard_vision_tpu_torch.kernels import load
 from chessboard_vision_tpu_torch.ops.filters import _reflect101_pad
 
@@ -79,8 +80,9 @@ def bilateral_reference(img: torch.Tensor, d: int = 9, sigma_color: float = 75.0
 
 
 def color_weight_table_reference(sigma_color: float = 75.0,
-                                 device: torch.device | str = "cpu") -> torch.Tensor:
+                                 device: torch.device | str = "cuda") -> torch.Tensor:
     """(766,) f32 exp((cd * cd) * gc) for cd = 0..765, by torch's exp."""
+    device = resolve_device(device, "color_weight_table_reference")
     cd = torch.arange(CD_LEVELS, dtype=torch.float32, device=device)
     return torch.exp((cd * cd) * _gc(sigma_color))
 

@@ -39,7 +39,8 @@ class PieceState(NamedTuple):
     hist_len: torch.Tensor  # (64,) i32
 
 
-def init_state(shape=(64, 77, 77), device="cpu") -> PieceState:
+def init_state(shape=(64, 77, 77), device="cuda") -> PieceState:
+    device = resolve_device(device, "piece_detector.init_state")
     n, p = shape[0], 1
     for d in shape[1:]:
         p *= int(d)

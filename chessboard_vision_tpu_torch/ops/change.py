@@ -15,6 +15,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from chessboard_vision_tpu_torch.device import resolve_device
 from chessboard_vision_tpu_torch.ops.xla_rounding import fma
 
 INTENSITY_NONE, INTENSITY_LEVE, INTENSITY_PARCIAL, INTENSITY_TOTAL = 0, 1, 2, 3
@@ -32,7 +33,8 @@ def flatten_pixels(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(x.shape[:-2] + (-1,)) if x.dim() >= 3 else x
 
 
-def init_state(shape=(64, 77, 77), device="cpu") -> ChangeModelState:
+def init_state(shape=(64, 77, 77), device="cuda") -> ChangeModelState:
+    device = resolve_device(device, "change.init_state")
     n, p = shape[0], 1
     for d in shape[1:]:
         p *= int(d)

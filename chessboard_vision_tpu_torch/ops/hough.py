@@ -32,6 +32,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from chessboard_vision_tpu_torch.device import resolve_device
 from chessboard_vision_tpu_torch.ops.canny import canny
 from chessboard_vision_tpu_torch.ops.filters import sobel3
 from chessboard_vision_tpu_torch.ops.xla_rounding import fma
@@ -66,8 +67,9 @@ class HoughParams(NamedTuple):
 
     @classmethod
     def from_geometry(cls, heights, widths, dp=1.2, min_ratio=0.20, max_ratio=0.55,
-                      device="cpu"):
+                      device="cuda"):
         """(params on ``device``, bounds) from the squares' sizes."""
+        device = resolve_device(device, "HoughParams.from_geometry")
         heights = np.asarray(heights)
         widths = np.asarray(widths)
         min_dim = np.minimum(heights, widths)

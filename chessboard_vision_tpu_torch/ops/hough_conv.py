@@ -19,6 +19,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from chessboard_vision_tpu_torch.device import resolve_device
 from chessboard_vision_tpu_torch.kernels.score_matmul import score_matmul
 from chessboard_vision_tpu_torch.ops.canny import canny
 from chessboard_vision_tpu_torch.ops.filters import sobel3
@@ -81,7 +82,7 @@ class ConvHoughPlan(NamedTuple):
         plane_h: int = None,
         plane_w: int = None,
         hysteresis_rounds: int = -1,
-        device="cpu",
+        device="cuda",
         k_align: int = None,
     ):
         """Kernels and windows live in accumulator space (planes sum-pooled
@@ -89,6 +90,7 @@ class ConvHoughPlan(NamedTuple):
         resolution. ``k_align`` pads the basis's K with zero columns to a
         multiple of it (the sums do not change); by default
         ``k_align_for(device)``: 8 on a CUDA device, else 1 (JAX's K)."""
+        device = resolve_device(device, "ConvHoughPlan.build")
         heights = np.asarray(heights)
         widths = np.asarray(widths)
         q = downsample

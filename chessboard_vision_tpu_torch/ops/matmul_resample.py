@@ -24,6 +24,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from chessboard_vision_tpu_torch.device import resolve_device
 from chessboard_vision_tpu_torch.ops.xla_rounding import fma
 
 
@@ -60,8 +61,9 @@ class MatmulResampleDims(NamedTuple):
     # (0 = too wide; the JAX package then takes its per-row path)
 
 
-def build_plan(qx: np.ndarray, qy: np.ndarray, src_h: int, src_w: int, device="cpu"):
+def build_plan(qx: np.ndarray, qy: np.ndarray, src_h: int, src_w: int, device="cuda"):
     """qx/qy: (64, Qr, Qc) f32 source coords per padded-square pixel."""
+    device = resolve_device(device, "build_plan")
     qx = np.asarray(qx, np.float32)
     qy = np.asarray(qy, np.float32)
     n_sq, Qr, Qc = qx.shape

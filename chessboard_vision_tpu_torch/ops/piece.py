@@ -17,6 +17,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from chessboard_vision_tpu_torch.device import resolve_device
 from chessboard_vision_tpu_torch.ops import hough as hough_ops
 from chessboard_vision_tpu_torch.ops import hough_conv as hough_conv_ops
 from chessboard_vision_tpu_torch.ops.warp import masked_mean, masked_std
@@ -43,8 +44,9 @@ class PieceMasks(NamedTuple):
     valid_flat: torch.Tensor  # (64, H*W) bool
 
     @classmethod
-    def build(cls, heights, widths, pad_h: int, pad_w: int, device="cpu") -> "PieceMasks":
+    def build(cls, heights, widths, pad_h: int, pad_w: int, device="cuda") -> "PieceMasks":
         """Host-side construction. (pad_h, pad_w) are the tensor dims H, W."""
+        device = resolve_device(device, "PieceMasks.build")
         heights = np.asarray(heights, np.int64)
         widths = np.asarray(widths, np.int64)
         H, W = pad_h, pad_w

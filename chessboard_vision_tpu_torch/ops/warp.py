@@ -17,6 +17,7 @@ from typing import NamedTuple
 
 import torch
 
+from chessboard_vision_tpu_torch.device import resolve_device
 from chessboard_vision_tpu_torch.geometry import BoardGeometry
 from chessboard_vision_tpu_torch.ops.xla_rounding import fma
 
@@ -40,7 +41,8 @@ class DeviceGeometry(NamedTuple):
         return (self.sq_iy.shape[1] - self.sq_mask.shape[1]) // 2
 
     @classmethod
-    def from_host(cls, geom: BoardGeometry, device="cpu") -> "DeviceGeometry":
+    def from_host(cls, geom: BoardGeometry, device="cuda") -> "DeviceGeometry":
+        device = resolve_device(device, "DeviceGeometry.from_host")
         s = geom.squares
 
         def t(a, dtype=None):

@@ -9,10 +9,12 @@ per step:
   (as the step does it: a host HWC frame is taken planar on the card by a
   single-stream step and kept HWC by a shared-geometry tick), and the host
   time to enqueue the step's device work (no upload);
-- under ``torch.profiler``: the wall time, the device busy time and its
-  share of the wall, the device kernels and copies, the host syncs (the
-  exact backend's hysteresis readbacks), and the top kernels by device
-  time.
+- under ``torch.profiler`` (``utils.profiling.device_trace``): the wall
+  time, the device busy time and its share of the wall, the device kernels
+  and copies, the host syncs (the exact backend's hysteresis readbacks);
+  then the device time per source file of the port (the innermost frame of
+  the port's package around each record's launch, as the JAX tool gives
+  each op's source file) and the top kernels with their source.
 
 The card's name and power limit (nvidia-smi) head the output.
 
@@ -24,7 +26,9 @@ from __future__ import annotations
 
 import argparse
 import subprocess
+import tempfile
 import time
+from collections import defaultdict
 
 import numpy as np
 import torch
@@ -35,6 +39,7 @@ from chessboard_vision_tpu_torch.ops.canny import canny
 from chessboard_vision_tpu_torch.ops.layout import to_planar
 from chessboard_vision_tpu_torch.parallel.multistream import MultiStreamPipeline
 from chessboard_vision_tpu_torch.tools.synth import SynthCamera, bench_corners, initial_occupancy
+from chessboard_vision_tpu_torch.utils.profiling import device_op_rows, device_trace, frame_path
 
 
 def main(argv=None):
@@ -53,8 +58,6 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA device")
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -121,21 +124,30 @@ def main(argv=None):
           f"{1e3 * (t2 - t1) / n:.3f} ms, enqueue+drain {1e3 * (t3 - t1) / n:.3f} ms per step")
 
     syncs = canny.host_syncs
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for i in range(n):
-            state, _ = step(state, i)
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0) / n
-    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3 / n
-    ops = sum(e.count for e in dev) / n
+    with tempfile.TemporaryDirectory(prefix="profile_step_") as tdir:
+        with device_trace(tdir):
+            t0 = time.perf_counter()
+            for i in range(n):
+                state, _ = step(state, i)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0) / n
+        rows = device_op_rows(tdir)
+    busy_ms = sum(ms for _, _, ms in rows) / n
     print(f"profiled {n} steps: wall {wall_ms:.3f} ms/step, device busy {busy_ms:.3f} "
-          f"ms/step ({100 * busy_ms / wall_ms:.1f}% of wall), {ops:.0f} device "
+          f"ms/step ({100 * busy_ms / wall_ms:.1f}% of wall), {len(rows) / n:.0f} device "
           f"kernels+copies/step, {(canny.host_syncs - syncs) / n:.1f} host syncs/step")
-    for e in sorted(dev, key=lambda e: -e.self_device_time_total)[: args.top]:
-        print(f"  {e.self_device_time_total / 1e3 / n:8.3f} ms/step  {e.count / n:6.1f}/step  "
-              f"{e.key[:90]}")
+    per_file, per_op, count = defaultdict(float), defaultdict(float), defaultdict(int)
+    for name, frames, ms in rows:
+        source = frames[0] if frames else "?"
+        per_file[frame_path(source)] += ms / n
+        per_op[name, source] += ms / n
+        count[name, source] += 1
+    print("per source file of the port (ms/step):")
+    for source, ms in sorted(per_file.items(), key=lambda kv: -kv[1]):
+        print(f"  {ms:8.4f}  {source}")
+    print(f"top {args.top} kernels (ms/step):")
+    for key, ms in sorted(per_op.items(), key=lambda kv: -kv[1])[: args.top]:
+        print(f"  {ms:8.4f}  {count[key] / n:6.1f}/step  {key[0][:70]:<70} {key[1]}")
 
 
 if __name__ == "__main__":

@@ -18,7 +18,7 @@ the last line:
    half of them, the median between CUDA events with the stream held
    behind a sleep kernel; that held-stream time beside it, and a "FLAG"
    line and the held time where the two disagree by more than 6 us +
-   15%; every profiled window is padded with sleep kernels on both sides,
+   15%; every profiled window starts with sleep kernels,
    and a line says where it still saw fewer records than launches), with
    the least time the
    card could take (bound) and, where one exists, one PyTorch call that
@@ -76,14 +76,28 @@ the last line:
    clahe(backend=) seam the same way, "kernel" on a CPU tensor raising, a
    "plain" enhanced pipeline's bool/i32 outputs equal to the kernel
    pipeline's with no B2 launch.
-6. exact path: VisionPipeline(hough_backend="exact") on HWC host frames: a
+6. profiler and stages (Queue C 15; utils/profiling.py): windows of 100
+   B4 calls and 20 plain 1080p steps, each through device_trace after
+   PAD_LAUNCHES sleep kernels, count (a) the runtime's launch and copy calls
+   in the Chrome trace and in key_averages, (b) the trace's device records,
+   (c) the device events of prof.events() and key_averages, and which
+   launches have no record (by correlation); B4's median record in the
+   trace and in prof.events() beside its held-stream time; the trace's span
+   of the window's records beside CUDA events around them. Then the
+   per-stage device ms (aggregate_device_op_ms with STAGE_OF, bench.py's
+   stage map on the port's files) of 20 plain steps, 20 enhanced steps and
+   10 ticks of 8 plain streams at 1920x1080 on HWC host frames, one window
+   each: the stages sum to the trace's device total within 0.1%, B1's
+   records land in "hough" and B2-B4's in "enhance", "other" stays under
+   10%; each window's total beside step_busy's for the same call.
+7. exact path: VisionPipeline(hough_backend="exact") on HWC host frames: a
    clean frame equals the truth, step_many over 16 frames equals the
    sequential steps, a GameSession on the exact backend commits e2e4, and
    no kernel launches; square decisions agree with the conv pipeline's on
    the same frames on >= 99.5%; ms a frame of both backends in turns, with
    device busy, ops and host syncs (the exact Canny's convergence
    readbacks) a step.
-7. streams path (parallel/multistream.py, parallel/session.py) on rendered
+8. streams path (parallel/multistream.py, parallel/session.py) on rendered
    1080p frames of 16 positions (each a different first move):
    - B1 at N = 8*64 and 16*64 on the pooled planes of 8 and 16 frames:
      each stream's 64 columns bit-equal to that stream's own N = 64
@@ -113,7 +127,7 @@ the last line:
    - 8 streams with with_change_detector=False beside the default tick:
      every other output bit-equal, the change fields zeros; ms a tick of
      both in turns.
-8. mesh path (parallel/mesh.py, the meshed MultiStreamPipeline) on the
+9. mesh path (parallel/mesh.py, the meshed MultiStreamPipeline) on the
    streams phase's 1080p frames, 8 streams, each showing its own first
    move (stream 0: e2e4), on 8 slots spread over the cards
    (``cuda:{i % cards}``: cuda:0 eight times on one card): the dp 8 mesh,
@@ -128,7 +142,7 @@ the last line:
    unsharded, dp 8 and 4 x 2 in turns (unsharded, dp 8, 4 x 2, 4 x 2, dp
    8, unsharded) with device busy and ops a tick: on one card the host
    cost of sharding, not a scaling figure.
-9. fleet path (parallel/distributed.py, tools/dryrun_multigpu.py): two
+10. fleet path (parallel/distributed.py, tools/dryrun_multigpu.py): two
    ``--fleet-worker`` processes over Gloo, both on cuda:0, 4 streams of
    1280x720 each on 2 slots each, every rank's occupancy equal to its rows
    of this process's unsharded run and the fleet's all_reduce of
@@ -143,7 +157,7 @@ the last line:
    process's unsharded run in every StepOutputs and FSM field; its wall
    time, and the same over NCCL where the machine has two cards (else a
    line says why not). The phase's wall time is printed.
-10. footage path (tools/process_video.py, api.py) on rendered 1920x1080
+11. footage path (tools/process_video.py, api.py) on rendered 1920x1080
    frames with piece types (per-square colors, per-type disc radii):
    - process_video.run_capture over a scripted game held in memory (4
      start frames, 28 after e2e4, 28 after e7e5; a reader at 30 fps,
@@ -176,7 +190,7 @@ the last line:
    - native.HostResampler, built with g++ here, on the 1080p board plan:
      bit-equal to the port's board warp on the card; ms a frame.
 
-11. live path (tools/play_lichess.py, session/lichess_session.py,
+12. live path (tools/play_lichess.py, session/lichess_session.py,
    session/drift.py, native.FrameRing) at 1280x720, the live driver's
    capture, on the board corners of tests/fixtures.DEFAULT_CORNERS
    rendered by tools/synth.SynthCamera:
@@ -197,7 +211,7 @@ the last line:
      bumped, one rebuild in per-stream-geometry mode, then every rig
      commits e2e4; the drift check of all rigs and the rebuild timed.
 
-12. ui path (tools/calibrate_piece_detector.py, calibrate_sensitivity.py,
+13. ui path (tools/calibrate_piece_detector.py, calibrate_sensitivity.py,
    calibrate_colors.py, enhance_demo.py, calibration_module.py, the
    session's radar) at 1280x720, the tools' capture, on
    tests/fixtures.DEFAULT_CORNERS, through a stand-in for cv2's HighGUI
@@ -230,7 +244,7 @@ the last line:
    Each line gives ms a frame (host clock), ms a rebuild (plan build and
    reference capture apart) and the launches.
 
-13. ablation (tools/ablate_enhanced.py at 980^2): B2-B4 in full and with
+14. ablation (tools/ablate_enhanced.py at 980^2): B2-B4 in full and with
    parts taken out (extra instantiations of the same kernels), the LUT
    phase, device copies of the same bytes and an empty kernel's launch, by
    held-stream CUDA events over chained calls; then the production B2-B4
@@ -239,8 +253,8 @@ the last line:
    more than 15%. Its launches are on no main path.
 
 A step's or tick's device busy time and ops (exact, streams) are
-torch.profiler's records summed over a window padded with sleep kernels
-on both sides, printed with the records seen against the launches
+torch.profiler's records summed over a window that starts with sleep
+kernels, printed with the records seen against the launches
 expected (the runtime's launch and copy calls); where records are still
 missing, the busy time comes from CUDA events (held stream, or around the
 calls as an upper bound for a step that synchronizes).
@@ -315,7 +329,17 @@ from chessboard_vision_tpu_torch.tools import ablate_enhanced
 from chessboard_vision_tpu_torch.tools import dryrun_multigpu, play_lichess, process_video
 from chessboard_vision_tpu_torch.tools.demo_pipeline import calibrated_session, occupancy_of, play
 from chessboard_vision_tpu_torch.utils import checkpoint as ckpt
-from chessboard_vision_tpu_torch.utils.profiling import FpsCounter, StageTimer
+from chessboard_vision_tpu_torch.utils.profiling import (
+    DEVICE_CATEGORIES,
+    LAUNCH_CATEGORIES,
+    FpsCounter,
+    StageTimer,
+    aggregate_device_op_ms,
+    device_op_rows,
+    device_trace,
+    load_trace,
+    stage_of_frames,
+)
 from chessboard_vision_tpu_torch.tools.synth import (
     SynthCamera,
     bench_corners,
@@ -387,9 +411,9 @@ def device_ms(fn, iters, before=None):
 def profiled(body, iters, pad=False):
     """torch.profiler over iters calls of body(), the card synchronized at
     the end: (the device events' keys, the profile). With ``pad``,
-    PAD_LAUNCHES sleep kernels run before and after the calls inside the
-    window (the profiler loses records at a session's ends: Queue C 15);
-    leave their key (pad_keys()) out of what is read."""
+    PAD_LAUNCHES sleep kernels run first inside the window (a session
+    loses the device records of its first launches: Queue C 15); leave
+    their key (pad_keys()) out of what is read."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -400,8 +424,6 @@ def profiled(body, iters, pad=False):
                 _pad()
             for _ in range(iters):
                 body()
-            if pad:
-                _pad()
             torch.cuda.synchronize()
     return {e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA}, prof
 
@@ -418,7 +440,7 @@ def records_vs_launches(prof, iters, skip=frozenset()):
                and e.key not in skip and e.key not in keys)
     launches = sum(e.count for e in events
                    if e.device_type == DeviceType.CPU and e.key in LAUNCH_CALLS)
-    return seen / iters, (launches - (2 * PAD_LAUNCHES if keys else 0)) / iters
+    return seen / iters, (launches - (PAD_LAUNCHES if keys else 0)) / iters
 
 
 def device_profile(fn, iters, before=None):
@@ -450,9 +472,11 @@ LAUNCH_CALLS = frozenset({"cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKe
                           "cuLaunchKernelEx", "cudaMemcpyAsync", "cudaMemsetAsync"})
 
 
-# Sleep kernels launched on each side of step_busy's window: the profiler
-# loses ~3-13 device records a session (Queue C 15); the pads leave the
-# window's own records whole when the losses fall at the session's ends.
+# Sleep kernels launched at the start of a profiled window. A
+# torch.profiler session loses the device records of its first launches,
+# inside kineto/CUPTI (the Chrome trace lacks them as the events do): 0-8
+# a session mostly, now and then dozens (Queue C 15). The pads take the
+# usual loss; the losses never fell at a session's end.
 PAD_LAUNCHES = 32
 
 
@@ -478,8 +502,8 @@ def step_busy(fn, iters):
     """Device busy ms and device ops per call of a step or tick under
     torch.profiler, and a note with the device records it saw against the
     launches it expected (the runtime's launch and copy calls it saw on the
-    host), with PAD_LAUNCHES sleep kernels before and after the calls, left
-    out of both. Where it still saw fewer records than launches, their sum
+    host), with PAD_LAUNCHES sleep kernels before the calls, left out of
+    both. Where it still saw fewer records than launches, their sum
     would read low: the busy time comes from CUDA events instead, held_ms
     (the stream held while every call is enqueued, so the host's gaps do not
     count) or, for a call that waits for the card inside (held_ms cannot
@@ -541,11 +565,11 @@ def held_ms(fn, iters):
 def launch_ms(fn, iters):
     """Device ms of one call of a wrapper that launches one kernel: the
     median duration of its records under torch.profiler over iters calls
-    (after a warmup) in a window padded with sleep kernels, and the records
-    seen a call against the launches a call. Unpadded, late in a long run
-    the profiler dropped 0.03-0.40 of the records (and in one run all of
-    100, Queue C 15), which lower a busy time per call but not the median;
-    where it saw fewer than half of them, the median of held_ms instead."""
+    (after a warmup) in a window that starts with sleep kernels, and the
+    records seen a call against the launches a call. A session loses the
+    records of its first launches (Queue C 15: once all of 100 unpadded),
+    which lowers a busy time per call but not the median; where it saw
+    fewer than half of them, the median of held_ms instead."""
     from torch.autograd import DeviceType
 
     for _ in range(3):
@@ -814,12 +838,16 @@ def clahe_bincount(lab_l, tiles):
     return bincount
 
 
+def lit_board(pipe, frame):
+    """The HWC camera frame's board from the gather warp, lit as the path
+    lights it: what the bilateral is handed on the path."""
+    board = warp_ops.frame_to_board(on_card(frame), pipe.consts.dg)
+    return correct_lighting(board.movedim(-1, -3))
+
+
 def enhancement_kernels_phase(pipe, frame, smi):
     """B2-B4 vs their plain versions at the enhanced path's 1080p shapes."""
-    # The HWC camera frame's board from the gather warp, lit as the path
-    # lights it: what the bilateral is handed on the path.
-    board = warp_ops.frame_to_board(on_card(frame), pipe.consts.dg)
-    board = correct_lighting(board.movedim(-1, -3))
+    board = lit_board(pipe, frame)
     g = torch.Generator(device=DEVICE).manual_seed(1)
     rand = torch.randint(0, 256, board.shape, device=DEVICE, generator=g, dtype=torch.uint8)
     records = []
@@ -923,6 +951,212 @@ def enhancement_kernels_phase(pipe, frame, smi):
                         max_abs_err=0, ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                         bound_by=bound_by, library_ms=None))
     return records
+
+
+# The port's modules by stage for aggregate_device_op_ms: bench.py's
+# _STAGE_OF (bench.py:74-94) on the port's files. Each kernel's wrapper
+# takes the stage of the op it serves, ops/layout.py the warp's. The JAX
+# bench leaves models/pipeline.py out as its jit wrapper; in the port it
+# holds the frame's one H2D copy and the step's few own ops: "upload".
+STAGE_OF = {
+    "ops/matmul_resample.py": "warp_extract",
+    "ops/warp.py": "warp_extract",
+    "ops/layout.py": "warp_extract",
+    "ops/filters.py": "preprocess",
+    "ops/color.py": "color",
+    "ops/canny.py": "hough",
+    "ops/hough_conv.py": "hough",
+    "ops/hough.py": "hough",
+    "kernels/score_matmul.py": "hough",
+    "ops/piece.py": "piece_cascade",
+    "models/piece_detector.py": "piece_cascade",
+    "ops/change.py": "change_model",
+    "ops/fsm.py": "fsm",
+    "models/enhancer.py": "enhance",
+    "ops/enhance.py": "enhance",
+    "kernels/bilateral.py": "enhance",
+    "kernels/clahe.py": "enhance",
+    "models/pipeline.py": "upload",
+}
+# Each kernel of the port by the name of its records: (B#, its stage).
+KERNEL_STAGE = {"score_matmul_kernel": ("B1", "hough"), "bilateral_kernel": ("B2", "enhance"),
+                "clahe_hist_tile_kernel": ("B3", "enhance"),
+                "clahe_apply_kernel": ("B4", "enhance")}
+STAGE_STEPS, STAGE_TICKS = 20, 10
+B4_WINDOWS = 10
+OTHER_SHARE = 0.10  # "other" (no mapped frame, or no launch in the trace) stays under it
+
+
+def trace_window(body, iters, log_dir):
+    """device_trace (Python stacks on) over PAD_LAUNCHES sleep kernels and
+    then iters calls of body() (after a warmup), with CUDA events recorded
+    after the pads and after the calls: (the trace's events, the profiler,
+    the events' ms)."""
+    for _ in range(3):
+        body()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    with device_trace(log_dir) as prof:
+        _pad()
+        start.record()
+        for _ in range(iters):
+            body()
+        end.record()
+        torch.cuda.synchronize()
+    return load_trace(log_dir), prof, start.elapsed_time(end)
+
+
+def record_counts(events, prof):
+    """Queue C 15's counts of a window that starts with the pads: (a) the
+    runtime's launch and copy calls on the host, in the trace and in
+    key_averages; (b) the trace's device records; (c) the device events of
+    prof.events() and of key_averages; the positions of the launches whose
+    record (by correlation) is missing; and the trace's span from the first
+    to the last record of a launch after the pads, in ms."""
+    from torch.autograd import DeviceType
+
+    calls = sorted((e for e in events if e.get("ph") == "X"
+                    and e.get("cat") in LAUNCH_CATEGORIES and e.get("name") in LAUNCH_CALLS),
+                   key=lambda e: e["ts"])
+    records = [e for e in events if e.get("ph") == "X" and e.get("cat") in DEVICE_CATEGORIES]
+    by_corr = {e["args"].get("correlation"): e for e in records}
+    own = [by_corr[c["args"]["correlation"]] for c in calls[PAD_LAUNCHES:]
+           if c["args"]["correlation"] in by_corr]
+    averages = prof.key_averages()
+    return dict(
+        a_trace=len(calls),
+        a_averages=sum(e.count for e in averages
+                       if e.device_type == DeviceType.CPU and e.key in LAUNCH_CALLS),
+        b_trace=len(records),
+        c_events=sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA),
+        c_averages=sum(e.count for e in averages if e.device_type == DeviceType.CUDA),
+        lost=[i for i, c in enumerate(calls) if c["args"]["correlation"] not in by_corr],
+        span_ms=(max(e["ts"] + e["dur"] for e in own) - min(e["ts"] for e in own)) / 1e3
+        if own else 0.0)
+
+
+def counts_agree(c):
+    """The launch calls agree between the trace and key_averages, and the
+    trace's device records with prof.events() and key_averages."""
+    return c["a_trace"] == c["a_averages"] and c["b_trace"] == c["c_events"] == c["c_averages"]
+
+
+def counts_text(c, event_ms):
+    """record_counts for a line."""
+    lost = c["lost"]
+    own = sum(i >= PAD_LAUNCHES for i in lost)
+    where = ("none" if not lost else
+             f"the window's first {len(lost)}" if lost == list(range(len(lost))) else
+             f"at positions {lost[:8]}")
+    return (f"(a) {c['a_trace']} launch and copy calls in the trace, {c['a_averages']} in "
+            f"key_averages; (b) {c['b_trace']} device records in the trace; (c) "
+            f"{c['c_events']} device events in prof.events(), {c['c_averages']} in key_averages; "
+            f"launches without a record: {where} ({len(lost) - own} of the {PAD_LAUNCHES} pads, "
+            f"{own} of the window's own); the trace's span of the window's own records "
+            f"{c['span_ms']:.3f} ms against CUDA events {event_ms:.3f} ms")
+
+
+def stages_phase(pipe, frame, camera, g, smi):
+    """Queue C 15's counts in a window of 100 B4 calls, then the per-stage
+    device time (utils.profiling.aggregate_device_op_ms over a device_trace
+    with STAGE_OF) of 20 plain steps, 20 enhanced steps and 10 ticks of 8
+    plain streams at 1080p on HWC host frames, each in one window that
+    starts with the pads: the stages sum to the trace's device total, each
+    kernel's records land in its stage, "other" stays under OTHER_SHARE;
+    each window's total beside step_busy's for the same call."""
+    from torch.autograd import DeviceType
+
+    lab_l = planar_bgr2lab(lit_board(pipe, frame))[0]
+    tiles = 8
+    th, tw = -(-lab_l.shape[0] // tiles), -(-lab_l.shape[1] // tiles)
+    _, lut = kc.clahe_hist_luts(lab_l, th, tw, tiles, max(int(3.0 * th * tw / 256), 1))
+
+    def b4():
+        kc.clahe_apply(lab_l, lut, th, tw, tiles)
+
+    rng = np.random.default_rng(13)
+    frames = [camera.render(initial_occupancy(), rng) for _ in range(4)]
+
+    def stepper(p):
+        state, i = [p.capture_reference(p.init_state(), frames[0])], itertools.count()
+
+        def step():
+            state[0], _ = p.step(state[0], frames[next(i) % 4], squares_to_check=ALL_SQUARES)
+        return step
+
+    ms8 = tms.MultiStreamPipeline(g, 8, device=DEVICE)
+    k8 = np.stack([frames[s % 4] for s in range(8)])
+    ticks = [ms8.capture_reference(ms8.init_state(), k8)]
+
+    def tick():
+        ticks[0], _ = ms8.step(ticks[0], k8)
+
+    windows = (("plain step", stepper(tp.VisionPipeline(g, device=DEVICE)), STAGE_STEPS,
+                {"B1": 1}),
+               ("enhanced step", stepper(tp.VisionPipeline(g, device=DEVICE, with_enhancer=True)),
+                STAGE_STEPS, {"B1": 1, "B2": 1, "B3": 1, "B4": 1}),
+               ("8-stream tick", tick, STAGE_TICKS, {"B1": 1}))
+    with tempfile.TemporaryDirectory(prefix="stages_") as tdir:
+        lost, prefix, agree = [], True, True
+        for k in range(B4_WINDOWS):
+            events, prof, event_ms = trace_window(b4, 100, os.path.join(tdir, "b4"))
+            counts = record_counts(events, prof)
+            lost.append(len(counts["lost"]))
+            prefix &= counts["lost"] == list(range(len(counts["lost"])))
+            agree &= counts_agree(counts)
+            if k:
+                continue
+            name = next(k for k in (e.get("name", "") for e in events) if "clahe_apply_kernel" in k)
+            trace_us = np.median([e["dur"] for e in events if e.get("name") == name
+                                  and e.get("cat") in DEVICE_CATEGORIES])
+            events_us = np.median([e.device_time_total for e in prof.events()
+                                   if e.device_type == DeviceType.CUDA and e.name == name])
+            held = held_ms(b4, 100)
+            phase("profiler", f"100 B4 calls (Queue C 15): {counts_text(counts, event_ms)}; "
+                  f"B4's median record {trace_us:.3f} us in the trace, {events_us:.3f} us in "
+                  f"prof.events(), held-stream CUDA events {held * 1e3:.3f} us; on {smi}")
+        phase("profiler", f"{B4_WINDOWS} windows of 100 B4 calls, each after the {PAD_LAUNCHES} "
+              f"pads: (a) and (b) = (c) agree in every window: {agree}; launches without a "
+              f"record {lost}; each the window's first launches: {prefix}; all within the "
+              f"pads: {max(lost) <= PAD_LAUNCHES}")
+        for label, body, n, want in windows:
+            log_dir = os.path.join(tdir, label.split()[0])
+            events, prof, event_ms = trace_window(body, n, log_dir)
+            counts = record_counts(events, prof)
+            if label == "plain step":
+                phase("profiler", f"{n} plain {WIDTH}x{HEIGHT} steps (Queue C 15): "
+                      f"{counts_text(counts, event_ms)}; on {smi}")
+            total = sum(e["dur"] for e in events if e.get("ph") == "X"
+                        and e.get("cat") in DEVICE_CATEGORIES) / 1e3 / n
+            stages = aggregate_device_op_ms(log_dir, stage_of=STAGE_OF, per=n)
+            check(abs(sum(stages.values()) - total) <= 1e-3 * total,
+                  f"stages {label}: the stages sum to {sum(stages.values()):.4f} ms, the trace's "
+                  f"device total is {total:.4f} ms")
+            check(stages.get("other", 0.0) < OTHER_SHARE * total,
+                  f"stages {label}: other {stages.get('other', 0.0):.4f} of {total:.4f} ms")
+            found = collections.Counter()
+            for kernel_name, frames_, _ in device_op_rows(log_dir):
+                for key, (b, stage) in KERNEL_STAGE.items():
+                    if key in kernel_name:
+                        got = stage_of_frames(frames_, STAGE_OF)
+                        check(got == stage, f"stages {label}: a {b} record landed in {got}, "
+                              f"not {stage} (frames {frames_})")
+                        found[b] += 1
+            whole = not any(i >= PAD_LAUNCHES for i in counts["lost"])
+            for b in ("B1", "B2", "B3", "B4"):
+                n_want = n * want.get(b, 0)
+                check(found[b] == n_want if whole else found[b] <= n_want,
+                      f"stages {label}: {found[b]} {b} records, want {n_want}")
+            busy, ops, note = step_busy(body, 5)
+            table = ", ".join(f"{k} {v:.4f} ({v / total:.1%})" for k, v in stages.items())
+            kernels = ", ".join(f"{b} {found[b]}" for b in ("B1", "B2", "B3", "B4") if found[b])
+            phase("stages", f"{label}, {n} in one window, {WIDTH}x{HEIGHT} HWC host frames: "
+                  f"device {total:.4f} ms a {label.split()[-1]} by the trace (step_busy "
+                  f"{busy:.4f} ms, {note}); {table}; records: {kernels} in their stages; "
+                  f"{counts['a_trace']} launches, {counts['b_trace']} records in the trace, "
+                  f"{counts['c_events']} device events, (a) and (b) = (c) agree: "
+                  f"{counts_agree(counts)}, {len(counts['lost'])} missing "
+                  f"({sum(i >= PAD_LAUNCHES for i in counts['lost'])} after the pads); on {smi}")
 
 
 def _compare_outputs(a, b, where):
@@ -3304,6 +3538,8 @@ def main():
     phase("enhanced", f"{n} CLAHE calls, each one B3 and one B4 launch")
     backend_seam_phase(pipe, frame, smi)
     elapsed("plain and enhanced paths")
+    stages_phase(pipe, frame, camera, g, smi)
+    elapsed("stages")
     exact_phase(corners, camera, rng, smi)
     elapsed("exact path")
 

@@ -40,9 +40,6 @@ NOT_CARRIED = {
     "parallel/mesh.py::shard_pytree_leading_axis(axis)": "GSPMD axis names",
     "parallel/mesh.py::shard_pytree_stream_square(data_axis)": "GSPMD axis names",
     "parallel/mesh.py::shard_pytree_stream_square(space_axis)": "GSPMD axis names",
-    "utils/profiling.py::aggregate_device_op_ms": "reads TPU per-op source metadata; its "
-                                                  "torch.profiler counterpart is the port's "
-                                                  "bench (ROADMAP A1)",
 }
 ARGPARSE = "an option of the tool's argparse main(argv)"
 RENAMED = {
@@ -171,3 +168,32 @@ def test_allowlist_entries_name_real_jax_surface(key):
         assert f'"{counterpart}"' in open(os.path.join(PORT_ROOT, module)).read(), key
     else:
         assert counterpart in (_port_lookup(module, name)[1] or []), key
+
+
+def _cpu_device_defaults(path: str) -> list:
+    """Public functions and methods of a module whose ``device`` parameter
+    defaults to "cpu", as "path:line name"."""
+    out = []
+    for node in ast.walk(ast.parse(open(path).read())):
+        if not isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            continue
+        if node.name.startswith("_") and node.name != "__init__":
+            continue
+        a = node.args
+        positional = a.posonlyargs + a.args
+        defaults = [None] * (len(positional) - len(a.defaults)) + list(a.defaults)
+        for arg, default in zip(positional + a.kwonlyargs, defaults + list(a.kw_defaults)):
+            if (arg.arg == "device" and isinstance(default, ast.Constant)
+                    and default.value == "cpu"):
+                out.append(f"{os.path.relpath(path, REPO)}:{node.lineno} {node.name}")
+    return out
+
+
+def test_no_public_builder_defaults_device_to_the_cpu():
+    """The port's entry points and builders run on the card unless the
+    caller names the CPU (device.resolve_device): a ``device="cpu"``
+    default would hand a caller on the card CPU tensors in silence, where
+    the JAX counterpart places its arrays on the accelerator."""
+    found = [hit for root, _, files in os.walk(PORT_ROOT) for f in sorted(files)
+             if f.endswith(".py") for hit in _cpu_device_defaults(os.path.join(root, f))]
+    assert found == []

@@ -190,7 +190,7 @@ def _bilateral_table_form(img: torch.Tensor) -> torch.Tensor:
     from its first term."""
     r = tbil.KERNEL_D // 2
     sw = tbil.space_weights(tbil.KERNEL_D, 75.0)
-    table = tbil.color_weight_table_reference(75.0)
+    table = tbil.color_weight_table_reference(75.0, device="cpu")
     _, h, w = img.shape
     p = tfilters._reflect101_pad(img, r).to(torch.int32)
     center = p[:, r : r + h, r : r + w]
@@ -334,7 +334,7 @@ def test_warp_board_color_bit_equal(rng):
     want = jax.jit(lambda f, p: jmr.warp_board_color(f, p, jdims, starts, g.board_size))(
         planar, jplan
     )
-    plan, dims = tmr.build_plan(qx, qy, g.src_h, g.src_w)
+    plan, dims = tmr.build_plan(qx, qy, g.src_h, g.src_w, device="cpu")
     index = torch.as_tensor(tmr.board_tile_index(starts, tile, g.board_size))
     got = tmr.warp_board_color(_t(planar), plan, dims, index)
     assert got.shape == (3, g.board_size, g.board_size)

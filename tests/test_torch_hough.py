@@ -76,7 +76,7 @@ def scenes():
 
 def _params(heights, widths):
     jp, jb = jh.HoughParams.from_geometry(heights, widths)
-    tp, tb = th.HoughParams.from_geometry(heights, widths)
+    tp, tb = th.HoughParams.from_geometry(heights, widths, device="cpu")
     return jp, jb, tp, tb
 
 
@@ -85,7 +85,8 @@ def test_params_and_bounds_equal_jax(ratios):
     g = jgeo.BoardGeometry.from_calibration(DEFAULT_CORNERS)
     hs, ws = g.squares.heights, g.squares.widths
     jp, jb = jh.HoughParams.from_geometry(hs, ws, min_ratio=ratios[0], max_ratio=ratios[1])
-    tp, tb = th.HoughParams.from_geometry(hs, ws, min_ratio=ratios[0], max_ratio=ratios[1])
+    tp, tb = th.HoughParams.from_geometry(hs, ws, min_ratio=ratios[0], max_ratio=ratios[1],
+                                         device="cpu")
     assert tuple(tb) == tuple(jb)
     for f in jh.HoughParams._fields:
         t, j = getattr(tp, f).numpy(), np.asarray(getattr(jp, f))

@@ -99,7 +99,7 @@ def test_score_matmul_reference_vs_xla_dot(squares):
     random bf16 planes, vs the XLA dot_general of hough_conv.py."""
     _, heights, widths, kw = squares
     jplan, _ = jhc.ConvHoughPlan.build(heights, widths, **kw)
-    tplan, _ = thc.ConvHoughPlan.build(heights, widths, **kw)
+    tplan, _ = thc.ConvHoughPlan.build(heights, widths, device="cpu", **kw)
     k = jplan.basis.shape[1]
     rng = np.random.default_rng(4)
     pf = rng.standard_normal((64, k)).astype(np.float32)
@@ -127,7 +127,7 @@ def _assert_circles_equal(tc, jc):
 def test_find_circle_parity_on_board_squares(squares):
     gray, heights, widths, kw = squares
     jplan, jdims = jhc.ConvHoughPlan.build(heights, widths, **kw)
-    tplan, tdims = thc.ConvHoughPlan.build(heights, widths, **kw)
+    tplan, tdims = thc.ConvHoughPlan.build(heights, widths, device="cpu", **kw)
     jc = jhc.find_circle(jnp.asarray(gray), jplan, jdims)
     tc = thc.find_circle(torch.as_tensor(np.array(gray)), tplan, tdims)
     _assert_circles_equal(tc, jc)
@@ -153,7 +153,7 @@ def test_find_circle_parity_on_synthetic_squares(rounds):
     imgs = np.stack(imgs)
     h = np.full(64, size)
     jplan, jdims = jhc.ConvHoughPlan.build(h, h, hysteresis_rounds=rounds)
-    tplan, tdims = thc.ConvHoughPlan.build(h, h, hysteresis_rounds=rounds)
+    tplan, tdims = thc.ConvHoughPlan.build(h, h, hysteresis_rounds=rounds, device="cpu")
     _assert_circles_equal(
         thc.find_circle(torch.as_tensor(imgs), tplan, tdims),
         jhc.find_circle(jnp.asarray(imgs), jplan, jdims),
@@ -261,8 +261,8 @@ def test_padded_plan_find_circle_equals_unpadded_and_jax(size, squares, squares_
     centers, radii exactly; scores within the matmul tolerance)."""
     gray, heights, widths, kw = squares if size == "720p" else squares_1080p
     jplan, jdims = jhc.ConvHoughPlan.build(heights, widths, **kw)
-    plan, dims = thc.ConvHoughPlan.build(heights, widths, **kw)
-    padded, pdims = thc.ConvHoughPlan.build(heights, widths, k_align=8, **kw)
+    plan, dims = thc.ConvHoughPlan.build(heights, widths, device="cpu", **kw)
+    padded, pdims = thc.ConvHoughPlan.build(heights, widths, k_align=8, device="cpu", **kw)
     k = plan.basis.shape[1]
     assert k == jplan.basis.shape[1] == {"720p": 1250, "1080p": 3200}[size]
     assert padded.basis.shape == (plan.basis.shape[0], -(-k // 8) * 8)

@@ -165,7 +165,7 @@ def test_host_resampler_equals_the_ports_board_warp(resample_case):
 
     frame, _, tg = resample_case
     host = native.HostResampler(tg.warp_X, tg.warp_Y, tg.src_h, tg.src_w)
-    dg = twarp.DeviceGeometry.from_host(tg)
+    dg = twarp.DeviceGeometry.from_host(tg, device="cpu")
     board = twarp.frame_to_board(torch.as_tensor(frame), dg, contract=False).numpy()
     for c, got in enumerate(host.resample_bgr(frame)):
         np.testing.assert_array_equal(got, board[..., c].reshape(-1))

@@ -60,7 +60,7 @@ def scene():
     planar = jto_planar(frame)
     qx, qy = g.square_query_coords()
     jplan, jdims = jmr.build_plan(qx, qy, g.src_h, g.src_w)
-    tplan, tdims = tmr.build_plan(qx, qy, g.src_h, g.src_w)
+    tplan, tdims = tmr.build_plan(qx, qy, g.src_h, g.src_w, device="cpu")
     gray_frame = np.asarray(jcolor.planar_bgr2gray(jnp.asarray(planar)))
     # Jitted like the pipeline's step: XLA's fusion decides the f32
     # multiply-add rounding the port reproduces.
@@ -210,9 +210,10 @@ def test_detect_pieces_conv_parity(scene):
     s = g.squares
     H, W = int(s.heights.max()), int(s.widths.max())
     jmasks = jpiece.PieceMasks.build(s.heights, s.widths, H, W)
-    tmasks = tpiece.PieceMasks.build(s.heights, s.widths, H, W)
+    tmasks = tpiece.PieceMasks.build(s.heights, s.widths, H, W, device="cpu")
     jplan, jdims = jhc.ConvHoughPlan.build(s.heights, s.widths, plane_h=H, plane_w=W, hysteresis_rounds=2)
-    tplan, tdims = thc.ConvHoughPlan.build(s.heights, s.widths, plane_h=H, plane_w=W, hysteresis_rounds=2)
+    tplan, tdims = thc.ConvHoughPlan.build(s.heights, s.widths, plane_h=H, plane_w=W,
+                                          hysteresis_rounds=2, device="cpu")
     gray = scene["gray"]
     jd = jpiece.detect_pieces(
         jnp.asarray(gray), jmasks, None, None,

@@ -88,7 +88,7 @@ def test_piece_detector_model_matches_jax(settings):
 def test_masked_std_interior_and_pad_match_jax():
     tg, grays = _squares(72)
     jg, _ = _geos()
-    jdg, tdg = jwarp.DeviceGeometry.from_host(jg), twarp.DeviceGeometry.from_host(tg)
+    jdg, tdg = jwarp.DeviceGeometry.from_host(jg), twarp.DeviceGeometry.from_host(tg, device="cpu")
     assert tdg.pad == jdg.pad == tg.squares.pad
     x = np.random.default_rng(73).integers(0, 256, tuple(tdg.sq_iy.shape), np.uint8)
     np.testing.assert_array_equal(twarp.interior(torch.as_tensor(x), tdg).numpy(),

@@ -60,7 +60,7 @@ def test_matmul_resample_plan_equal(geometry):
     g = geometry
     qx, qy = g.square_query_coords()
     jplan, jdims = jmr.build_plan(qx, qy, g.src_h, g.src_w)
-    tplan, tdims = tmr.build_plan(qx, qy, g.src_h, g.src_w)
+    tplan, tdims = tmr.build_plan(qx, qy, g.src_h, g.src_w, device="cpu")
     assert tuple(tdims) == tuple(jdims)
     common = [f for f in tplan._fields if f in jplan._fields]
     assert len(common) == 8
@@ -75,7 +75,7 @@ def test_conv_hough_plan_equal(geometry):
     s = geometry.squares
     kw = dict(plane_h=int(s.heights.max()), plane_w=int(s.widths.max()), hysteresis_rounds=2)
     jplan, jdims = jhc.ConvHoughPlan.build(s.heights, s.widths, **kw)
-    tplan, tdims = thc.ConvHoughPlan.build(s.heights, s.widths, **kw)
+    tplan, tdims = thc.ConvHoughPlan.build(s.heights, s.widths, device="cpu", **kw)
     assert tdims == jdims
     assert tplan._fields == jplan._fields
     assert tplan.basis.dtype == torch.bfloat16
@@ -86,9 +86,9 @@ def test_piece_masks_and_device_geometry_equal(geometry):
     s = geometry.squares
     H, W = int(s.heights.max()), int(s.widths.max())
     jm = jpiece.PieceMasks.build(s.heights, s.widths, H, W)
-    tm = tpiece.PieceMasks.build(s.heights, s.widths, H, W)
+    tm = tpiece.PieceMasks.build(s.heights, s.widths, H, W, device="cpu")
     assert tm._fields == jm._fields
     _assert_fields_equal(tm, jm, tm._fields)
     jdg = jwarp.DeviceGeometry.from_host(geometry)
-    tdg = twarp.DeviceGeometry.from_host(geometry)
+    tdg = twarp.DeviceGeometry.from_host(geometry, device="cpu")
     _assert_fields_equal(tdg, jdg, tdg._fields)
