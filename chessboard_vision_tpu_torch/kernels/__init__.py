@@ -20,6 +20,8 @@ from typing import Dict, NamedTuple, Optional, Sequence
 
 KERNEL_DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(KERNEL_DIR, "_build")
+# Every kernel source of the port, by name (``<name>.cu``).
+SOURCES = tuple(sorted(f[:-3] for f in os.listdir(KERNEL_DIR) if f.endswith(".cu")))
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

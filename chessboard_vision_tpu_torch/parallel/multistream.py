@@ -62,7 +62,11 @@ axis).
 Host <-> device traffic: ``step`` makes one H2D copy per tick and slot and
 ``step_chunk`` one per chunk and slot (frames, square masks and flags
 packed together, models/pipeline.upload); ``outputs_to_numpy`` reads a
-tick's or a chunk's outputs back in one D2H copy.
+tick's or a chunk's outputs back in one D2H copy. Frames given as a tensor
+(on any device, in its layout, as the single-stream ``step`` takes one)
+do not go through the host: each slot takes its streams' rows with
+``.to`` its device (no copy where they already lie there), and only the
+flags are uploaded.
 """
 
 from __future__ import annotations
@@ -539,19 +543,28 @@ class MultiStreamPipeline:
 
     def _uploads(self, frames, flags: np.ndarray, axis: int) -> list:
         """One H2D copy a slot: its streams' frames and flags (the stream
-        axis is ``axis`` of both) onto its device."""
-        frames = np.asarray(frames)
+        axis is ``axis`` of both) onto its device. A tensor's rows go to
+        the slot's device as they are, and only the flags are uploaded."""
+        on_device = isinstance(frames, torch.Tensor)
+        if not on_device:
+            frames = np.asarray(frames)
         first = self._local(frames.shape[axis])
         ups = []
         for slot in self.slots:
             rows = (slice(None),) * axis + (slice(slot.block.streams.start - first,
                                                   slot.block.streams.stop - first),)
-            ups.append(tp.upload(frames[rows], flags[rows], slot.block.device))
+            dev = slot.block.device
+            if on_device:
+                _, slot_flags = tp.upload(np.zeros(0, np.uint8), flags[rows], dev)
+                ups.append((frames[rows].to(dev), slot_flags))
+            else:
+                ups.append(tp.upload(frames[rows], flags[rows], dev))
         return ups
 
     def capture_reference(self, state, frames):
         """Set every stream's visual references and change model from
-        frames (N, H, W, 3) HWC or (N, 3, H, W) planar u8."""
+        frames (N, H, W, 3) HWC or (N, 3, H, W) planar u8, host arrays or
+        tensors on any device."""
         pipes, noises = self._parts(state)
         uploads = self._uploads(frames, np.zeros((len(frames), 0), bool), 0)
         new = []
@@ -573,18 +586,20 @@ class MultiStreamPipeline:
 
     def step(self, state, frames, s2c_masks=None, refresh=None):
         """One tick for all N streams (or this process's, on a mesh across
-        processes). frames: (N, H, W, 3) HWC or (N, 3, H, W) planar u8;
-        s2c_masks: optional (N, 64) bool squares to force a fresh detection
-        on; refresh: optional (N,) bool forced re-reference per stream.
-        Returns (state, MultiStreamOutputs on the device)."""
+        processes). frames: (N, H, W, 3) HWC or (N, 3, H, W) planar u8, a
+        host array or a tensor on any device; s2c_masks: optional (N, 64)
+        bool squares to force a fresh detection on; refresh: optional (N,)
+        bool forced re-reference per stream. Returns (state,
+        MultiStreamOutputs on the device)."""
         flags = self._row_flags(self._flags((), s2c_masks, refresh, np.shape(frames)[0]))
         return self._tick_slots(state, self._uploads(frames, flags, 0))
 
     def step_chunk(self, state, frames):
         """T ticks for all N streams from one upload a slot: frames (T, N, H,
-        W, 3) or (T, N, 3, H, W) u8. Outputs have leading (T, N) axes; tick
-        semantics equal T sequential ``step`` calls (no squares_to_check,
-        no refresh)."""
+        W, 3) or (T, N, 3, H, W) u8, a host array or a tensor on any device
+        (a buffer already on the slots' device is read in place). Outputs
+        have leading (T, N) axes; tick semantics equal T sequential
+        ``step`` calls (no squares_to_check, no refresh)."""
         t_len, n = np.shape(frames)[:2]
         ups = self._uploads(frames, self._flags((t_len,), n=n), 1)
         outs = []

@@ -90,6 +90,14 @@ the last line:
    each: the stages sum to the trace's device total within 0.1%, B1's
    records land in "hough" and B2-B4's in "enhance", "other" stays under
    10%; each window's total beside step_busy's for the same call.
+   Then the bench (tools/bench.py, which holds STAGE_OF) in this process
+   at a short length (``--frames 128 --passes 2``, ~90 s), its JSON line
+   printed: every key of its line present and every fps > 0, every FEN's
+   board the synthetic frame's occupancy, the 8-stream rig's first chunk
+   on device-resident buffers equal tick for tick to the same frames as
+   host arrays (MultiStreamPipeline taking frames already on the card),
+   each per-stage table's total within 3% of step_busy's device time of
+   the same steps, and B1-B4 launched.
 7. exact path: VisionPipeline(hough_backend="exact") on HWC host frames: a
    clean frame equals the truth, step_many over 16 frames equals the
    sequential steps, a GameSession on the exact backend commits e2e4, and
@@ -266,8 +274,8 @@ per CLAHE call, the exact path none, the streams path all four, the mesh
 path all four (the unsharded pipeline it is compared with and timed
 beside counts nothing; the fleet's launches are in its worker
 processes), the footage path all four, the live path all four (B2-B4 on the enhanced
-streams), the ui path all four; B1's 1080p launches must take the TMA
-kernel. On the exact, streams, mesh, footage, live and ui paths the counts are
+streams), the ui path all four, the bench all four; B1's 1080p launches must take
+the TMA kernel. On the exact, streams, mesh, footage, live and ui paths the counts are
 set to 0 just before each call of the path's pipelines, sessions, entry
 points and tools and read
 just after it, so the pipelines and plain versions they are compared with
@@ -298,7 +306,7 @@ import torch
 from torch.utils._pytree import tree_leaves
 
 from chessboard_vision_tpu_torch.kernels import bilateral as kb
-from chessboard_vision_tpu_torch.kernels import build_all
+from chessboard_vision_tpu_torch.kernels import SOURCES, build_all
 from chessboard_vision_tpu_torch.kernels import clahe as kc
 from chessboard_vision_tpu_torch.kernels import score_matmul as sm
 from chessboard_vision_tpu_torch.models import pipeline as tp
@@ -325,19 +333,23 @@ from chessboard_vision_tpu_torch.rules.pgn import game_to_pgn
 from chessboard_vision_tpu_torch.session.game_session import GameSession
 from chessboard_vision_tpu_torch.session.lichess_session import LichessSession
 from chessboard_vision_tpu_torch import native
-from chessboard_vision_tpu_torch.tools import ablate_enhanced
+from chessboard_vision_tpu_torch.tools import ablate_enhanced, bench
 from chessboard_vision_tpu_torch.tools import dryrun_multigpu, play_lichess, process_video
+from chessboard_vision_tpu_torch.tools.bench import STAGE_OF
 from chessboard_vision_tpu_torch.tools.demo_pipeline import calibrated_session, occupancy_of, play
 from chessboard_vision_tpu_torch.utils import checkpoint as ckpt
 from chessboard_vision_tpu_torch.utils.profiling import (
     DEVICE_CATEGORIES,
+    LAUNCH_CALLS,
     LAUNCH_CATEGORIES,
+    PAD_LAUNCHES,
     FpsCounter,
     StageTimer,
     aggregate_device_op_ms,
     device_op_rows,
     device_trace,
     load_trace,
+    sleep_pads,
     stage_of_frames,
 )
 from chessboard_vision_tpu_torch.tools.synth import (
@@ -355,7 +367,6 @@ EXACT_FIELDS = ("occupancy", "raw_occupancy", "visual_changes", "method", "radiu
 CHUNK, ENHANCED_CHUNK = 64, 32
 ALL_SQUARES = {(f, r) for f in range(8) for r in range(8)}
 DEVICE = "cuda"
-KERNELS = ("score_matmul", "bilateral", "clahe")
 # The card's published peaks (H100 SXM data sheet, dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS, F32_FLOPS = 989e12, 67e12
@@ -421,7 +432,7 @@ def profiled(body, iters, pad=False):
         warnings.simplefilter("ignore", UserWarning)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             if pad:
-                _pad()
+                sleep_pads()
             for _ in range(iters):
                 body()
             torch.cuda.synchronize()
@@ -466,25 +477,6 @@ def device_profile(fn, iters, before=None):
     return busy_us / 1e3 / iters, sum(e.count for e in dev) / iters
 
 
-# The runtime calls that each put one record on the device: kernel
-# launches, async copies and memsets.
-LAUNCH_CALLS = frozenset({"cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
-                          "cuLaunchKernelEx", "cudaMemcpyAsync", "cudaMemsetAsync"})
-
-
-# Sleep kernels launched at the start of a profiled window. A
-# torch.profiler session loses the device records of its first launches,
-# inside kineto/CUPTI (the Chrome trace lacks them as the events do): 0-8
-# a session mostly, now and then dozens (Queue C 15). The pads take the
-# usual loss; the losses never fell at a session's end.
-PAD_LAUNCHES = 32
-
-
-def _pad():
-    for _ in range(PAD_LAUNCHES):
-        torch.cuda._sleep(1)
-
-
 @functools.lru_cache(maxsize=1)
 def pad_keys():
     """The profiler's key of the pads' sleep kernel, to leave it out. A
@@ -492,7 +484,7 @@ def pad_keys():
     empty set cached here would count the pads as the window's own
     records: profile the pads again until a session sees them."""
     for _ in range(5):
-        keys = profiled(_pad, 1)[0]
+        keys = profiled(sleep_pads, 1)[0]
         if keys:
             return frozenset(keys)
     raise RuntimeError("torch.profiler saw no record of the pads' sleep kernels in 5 sessions")
@@ -647,8 +639,8 @@ def device_phase():
 
 def build_phase():
     t0 = time.perf_counter()
-    results = build_all(KERNELS)
-    phase("build", f"{len(KERNELS)} sources built in parallel in "
+    results = build_all(SOURCES)
+    phase("build", f"{len(SOURCES)} sources built in parallel in "
           f"{time.perf_counter() - t0:.2f} s wall")
     for name, result in results.items():
         phase("build", f"{name}.cu -> {result.path} in {result.seconds:.2f} s")
@@ -953,31 +945,6 @@ def enhancement_kernels_phase(pipe, frame, smi):
     return records
 
 
-# The port's modules by stage for aggregate_device_op_ms: bench.py's
-# _STAGE_OF (bench.py:74-94) on the port's files. Each kernel's wrapper
-# takes the stage of the op it serves, ops/layout.py the warp's. The JAX
-# bench leaves models/pipeline.py out as its jit wrapper; in the port it
-# holds the frame's one H2D copy and the step's few own ops: "upload".
-STAGE_OF = {
-    "ops/matmul_resample.py": "warp_extract",
-    "ops/warp.py": "warp_extract",
-    "ops/layout.py": "warp_extract",
-    "ops/filters.py": "preprocess",
-    "ops/color.py": "color",
-    "ops/canny.py": "hough",
-    "ops/hough_conv.py": "hough",
-    "ops/hough.py": "hough",
-    "kernels/score_matmul.py": "hough",
-    "ops/piece.py": "piece_cascade",
-    "models/piece_detector.py": "piece_cascade",
-    "ops/change.py": "change_model",
-    "ops/fsm.py": "fsm",
-    "models/enhancer.py": "enhance",
-    "ops/enhance.py": "enhance",
-    "kernels/bilateral.py": "enhance",
-    "kernels/clahe.py": "enhance",
-    "models/pipeline.py": "upload",
-}
 # Each kernel of the port by the name of its records: (B#, its stage).
 KERNEL_STAGE = {"score_matmul_kernel": ("B1", "hough"), "bilateral_kernel": ("B2", "enhance"),
                 "clahe_hist_tile_kernel": ("B3", "enhance"),
@@ -997,7 +964,7 @@ def trace_window(body, iters, log_dir):
     torch.cuda.synchronize()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     with device_trace(log_dir) as prof:
-        _pad()
+        sleep_pads()
         start.record()
         for _ in range(iters):
             body()
@@ -1157,6 +1124,71 @@ def stages_phase(pipe, frame, camera, g, smi):
                   f"{counts['c_events']} device events, (a) and (b) = (c) agree: "
                   f"{counts_agree(counts)}, {len(counts['lost'])} missing "
                   f"({sum(i >= PAD_LAUNCHES for i in counts['lost'])} after the pads); on {smi}")
+
+
+# The bench's phase: its arguments (a short run, ~90 s at 1080p), the keys
+# of its line, and how far a per-stage table's total may lie from
+# step_busy's device time of the same steps.
+BENCH_ARGV = ("--frames", "128", "--passes", "2")
+BENCH_KEYS = ("chunk", "frames", "device", "build_s", "first_step_s", "pass_median_fps",
+              "distinct_frames_fps", "host_frames_fps", "per_stage_ms", "per_stage_window",
+              "strict_sync_p50_ms", "batched_streams", "batched_aggregate_fps",
+              "batched_host_frames_fps", "batched_distinct_fps", "batched_16stream_fps",
+              "peak_mem_gb", "enhanced_fps", "per_stage_ms_enhanced",
+              "batched_enhanced_fps", "batched_enhanced_distinct_fps")
+BENCH_STAGE_SHARE = 0.03
+
+
+def bench_phase(smi):
+    """tools/bench.py's main in this process at a short length, with every
+    count set to 0 just before it and read just after: every key of its
+    line, every fps > 0, every FEN's board the synthetic frame's
+    occupancy, the 8-stream rig's first chunk on device-resident buffers
+    equal tick for tick to the same chunk as host arrays (and to the
+    truth), each per-stage table's total within BENCH_STAGE_SHARE of
+    step_busy's device time of the same steps, and B1-B4 launched.
+    Returns the launch counts."""
+    t0 = time.perf_counter()
+    with counted(collections.Counter()) as got:
+        report = bench.main(list(BENCH_ARGV))
+    seconds = time.perf_counter() - t0
+    line, extras = report.line, report.line["extras"]
+    missing = [k for k in BENCH_KEYS if k not in extras]
+    check(not missing and line["metric"] == "fps_1080p_frame_to_fen",
+          f"bench: keys missing from its line: {missing}")
+    fps = dict(value=line["value"], **{k: v for k, v in extras.items()
+                                       if k.endswith("_fps") and k != "pass_median_fps"},
+               **{f"pass_median {k}": v for k, v in extras["pass_median_fps"].items()})
+    check(all(v > 0 for v in fps.values()), f"bench: an fps <= 0 in {fps}")
+    truth = occupancy_to_fen(bench.OCCUPANCY).split()[0]
+    for label, fens in report.fens.items():
+        boards = collections.Counter(f.split()[0] for f in fens)
+        check(set(boards) == {truth}, f"bench {label}: boards {dict(boards)}, want {truth}")
+    n, t = extras["batched_streams"], extras["chunk"]
+    on_card = report.first_chunks[f"{n}-stream (chunk {t})"]
+    on_host = report.first_chunks[f"{n}-stream host frames (chunk {t})"]
+    want = torch.as_tensor(bench.OCCUPANCY.T.reshape(64)).expand(on_card.shape)
+    check(on_card.shape == (t, n, 64) and torch.equal(on_card, on_host),
+          f"bench: the {n}-stream rig's occupancy on device-resident buffers differs from "
+          "the same frames as host arrays")
+    check(torch.equal(on_card, want), f"bench: the {n}-stream rig's occupancy is not the truth")
+    busy_text = []
+    for label, (step, steps) in report.windows.items():
+        stages = extras["per_stage_ms" if label == "plain" else "per_stage_ms_enhanced"]
+        total = sum(stages.values())
+        busy = step_busy(step, 5)[0]
+        check(abs(total - busy) <= BENCH_STAGE_SHARE * busy,
+              f"bench {label}: the per-stage table sums to {total:.4f} ms a step, step_busy "
+              f"reads {busy:.4f}")
+        busy_text.append(f"{label} {total:.4f} ms a step by the table, {busy:.4f} by step_busy "
+                         f"({extras['per_stage_window'][label]})")
+    missing = [k for k in COUNTERS if k != "clahe_hist" and got[k] == 0]
+    check(not missing, f"the bench never launched {missing}")
+    check(got["clahe_hist"] == 0, "the bench launched the histogram-only B3")
+    phase("bench", f"{' '.join(BENCH_ARGV)} in {seconds:.1f} s: {line['value']} fps headline; "
+          f"every FEN {truth}; the {n}-stream rig's first chunk on the card equal to host "
+          f"frames on all {t} ticks; {'; '.join(busy_text)}; launches {got}; on {smi}")
+    return got
 
 
 def _compare_outputs(a, b, where):
@@ -3540,6 +3572,8 @@ def main():
     elapsed("plain and enhanced paths")
     stages_phase(pipe, frame, camera, g, smi)
     elapsed("stages")
+    bench_counts = bench_phase(smi)
+    elapsed("bench")
     exact_phase(corners, camera, rng, smi)
     elapsed("exact path")
 
@@ -3591,7 +3625,7 @@ def main():
     for rec in records:
         w = PATH_WRAPPER.get(rec["name"], rec["name"])
         rec["launches"] = (plain[w] + enhanced[w] + streams[w] + mesh[w] + footage[w] + live[w]
-                           + ui[w])
+                           + ui[w] + bench_counts[w])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: rec[k] for k in keys} for rec in records]}), flush=True)

@@ -219,6 +219,49 @@ def test_multistream_on_card_matches_cpu(cuda):
         (f, r) for f in range(8) for r in range(8) if occ1[f, r]}
 
 
+def test_multistream_takes_frames_on_the_card(cuda):
+    """capture_reference, step_chunk and step given the frames as tensors
+    already on the card (planar and HWC) give the outputs and states of the
+    same frames as host arrays, bit for bit."""
+    from chessboard_vision_tpu_torch.parallel import multistream as tms
+
+    h, w = 720, 1280
+    corners = bench_corners(h, w)
+    g = geo.BoardGeometry.from_calibration(corners, display_size=(w, h))
+    cam = SynthCamera(corners, frame_size=(h, w), board_px=g.board_size)
+    rng = np.random.default_rng(5)
+    occ1 = initial_occupancy()
+    occ1[4, 1], occ1[4, 3] = False, True
+    ref = np.stack([cam.render(initial_occupancy(), rng) for _ in range(2)])
+    chunk = np.stack([np.stack([cam.render(o, rng) for o in (initial_occupancy(), occ1)])
+                      for _ in range(3)])
+    for planar in (False, True):
+        r, c = (np.ascontiguousarray(np.moveaxis(x, -1, -3)) if planar else x
+                for x in (ref, chunk))
+        ms = tms.MultiStreamPipeline(g, 2, device=cuda)
+        runs = []
+        for frames in (np.asarray, lambda x: torch.as_tensor(x, device=cuda)):
+            st = ms.capture_reference(ms.init_state(), frames(r))
+            st, many = ms.step_chunk(st, frames(c))
+            st, one = ms.step(st, frames(c[0]), s2c_masks=np.ones((2, 64), bool))
+            runs.append((tms.multistream_state_to_numpy(st), tms.outputs_to_numpy(many),
+                         tms.outputs_to_numpy(one)))
+        leaves = [list(_host_leaves(run)) for run in runs]
+        assert len(leaves[0]) == len(leaves[1]) > 30
+        for (path, x), (_, y) in zip(*leaves):
+            assert x.dtype == y.dtype and np.array_equal(x, y), (planar, path)
+
+
+def _host_leaves(tree, path=""):
+    """(path, array) of every numpy leaf of nested tuples and NamedTuples."""
+    if isinstance(tree, np.ndarray):
+        yield path, tree
+    elif isinstance(tree, tuple):
+        names = getattr(tree, "_fields", range(len(tree)))
+        for name, sub in zip(names, tree):
+            yield from _host_leaves(sub, f"{path}.{name}")
+
+
 def test_find_circle_on_card_matches_cpu(cuda):
     """Decisions of the conv detector on the card equal the CPU port's on
     discs of many radii and offsets."""

@@ -67,7 +67,7 @@ for name in ("ops.fsm", "ops.hough", "ops.warp", "parallel", "parallel.multistre
              "tools.calibration_module", "tools.calibrate_piece_detector",
              "tools.calibrate_sensitivity", "tools.calibrate_colors", "tools.enhance_demo",
              "reference", "reference.replay_session", "parallel.mesh", "parallel.distributed",
-             "tools.dryrun_multigpu", "tools.ablate_enhanced", "models"):
+             "tools.dryrun_multigpu", "tools.ablate_enhanced", "tools.bench", "models"):
     assert port.__name__ + "." + name in names, name
 
 from chessboard_vision_tpu_torch import geometry as geo
