@@ -1,5 +1,5 @@
 // Bilateral filter (cv2.bilateralFilter d=9, sigma_color = sigma_space = 75)
-// on a planar (3, H, W) u8 image, hand-written for Hopper.
+// on N planar (3, H, W) u8 images, hand-written for Hopper.
 //
 //   out[c, y, x] = round(sum_taps w * in[c, y+dy, x+dx] / sum_taps w)
 //   w = sw[dy, dx] * cw[cd],  cw[cd] = exp(cd * cd * gc),
@@ -10,7 +10,10 @@
 //
 // Replaces chessboard_vision_tpu/ops/pallas/bilateral.py::
 // bilateral_planar_pallas (the Pallas row-band stencil with hoisted
-// lane-shifted copies).
+// lane-shifted copies). The JAX meshed tick vmaps it over a slot's boards,
+// which Pallas turns into one kernel with a leading grid axis; here the
+// board is blockIdx.z, so a tick's N boards are one launch with the same
+// work per plane (every board's tiles in one grid).
 //
 // What bounds it on an H100: at 1080p (3, 980, 980) it reads and writes
 // 5.8 MB (~2 us at 3.35 TB/s) but evaluates 47 M taps: it is bound by
@@ -116,6 +119,8 @@ bilateral_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
   __shared__ __align__(16) float cw[TABLE_LEN];
   const int x0 = blockIdx.x * BW, y0 = blockIdx.y * BH;
   const size_t plane = static_cast<size_t>(H) * W;
+  in += 3 * plane * blockIdx.z;  // this block's board
+  out += 3 * plane * blockIdx.z;
   const int tid = threadIdx.y * TX + threadIdx.x;
   // A block whose halo stays inside the image columns reads its tile rows
   // as aligned 4-byte words; border blocks reflect column by column.
@@ -267,16 +272,17 @@ extern "C" int cbv_bilateral_color_table(void* table, float gc, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// in/out: (3, H, W) u8 on the device; space_weights: 81 host floats
-// ([dy][dx], zeros outside the disk); color_table: the device table of
-// cbv_bilateral_color_table. Launches on `stream` and returns
-// cudaGetLastError() of the launch (0 = success).
-extern "C" int cbv_bilateral(const void* in, void* out, int H, int W,
+// in/out: (N, 3, H, W) u8 on the device, contiguous, 1 <= N <= 65535;
+// space_weights: 81 host floats ([dy][dx], zeros outside the disk);
+// color_table: the device table of cbv_bilateral_color_table. One launch
+// for the N boards. Launches on `stream` and returns cudaGetLastError() of
+// the launch (0 = success).
+extern "C" int cbv_bilateral(const void* in, void* out, int N, int H, int W,
                              const float* space_weights, const void* color_table,
                              void* stream) {
   SpaceWeights sw;
   for (int i = 0; i < SPAN * SPAN; ++i) sw.w[i] = space_weights[i];
-  const dim3 grid((W + BW - 1) / BW, (H + BH - 1) / BH);
+  const dim3 grid((W + BW - 1) / BW, (H + BH - 1) / BH, N);
   bilateral_kernel<kFull><<<grid, dim3(TX, TY), 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(in), static_cast<uint8_t*>(out),
       static_cast<const float*>(color_table), H, W, sw);
@@ -284,8 +290,8 @@ extern "C" int cbv_bilateral(const void* in, void* out, int H, int W,
 }
 
 // An ablation variant (Variant: 1 kNoTable, 2 kSumsOnly, 3 kStageOnly; 0 is
-// the production kernel) with cbv_bilateral's arguments and launch;
-// returns cudaErrorInvalidValue for an unknown variant.
+// the production kernel) with cbv_bilateral's arguments and launch for one
+// board (3, H, W); returns cudaErrorInvalidValue for an unknown variant.
 extern "C" int cbv_bilateral_variant(int variant, const void* in, void* out, int H, int W,
                                      const float* space_weights, const void* color_table,
                                      void* stream) {

@@ -2,7 +2,9 @@
 
 ``bilateral_planar`` picks by the tensor's device alone: a CPU tensor takes
 the plain version (the CPU tests run it), a CUDA tensor launches the kernel
-or raises. ``bilateral_planar.launches`` counts kernel launches.
+or raises. ``bilateral_planar.launches`` counts kernel launches. Both take
+any leading axes, (..., 3, H, W): the kernel runs every board in one launch
+(the board is a grid axis), the plain version on the whole batch at once.
 
 The kernel reads its color weights exp(cd * cd * gc) from a table of the
 766 integer color distances cd. ``color_weight_table`` builds it on the
@@ -14,6 +16,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 import threading
 
 import numpy as np
@@ -26,6 +29,7 @@ from chessboard_vision_tpu_torch.ops.filters import _reflect101_pad
 KERNEL_D = 9  # the kernel's disk diameter (radius 4, compiled in)
 CD_LEVELS = 766  # color distances cd = sum_c |nb - center| in [0, 3 * 255]
 _TABLE_LEN = 768  # the kernel's table: CD_LEVELS entries and two padding zeros
+MAX_BOARDS = 65535  # boards a launch: the grid's z extent
 _lib = None
 _tables = {}  # (device index, gc) -> the device's color-weight table
 _tables_lock = threading.Lock()
@@ -55,22 +59,23 @@ def _gc(sigma_color: float) -> float:
 
 def bilateral_reference(img: torch.Tensor, d: int = 9, sigma_color: float = 75.0,
                         sigma_space: float = 75.0) -> torch.Tensor:
-    """(3, H, W) u8 -> (3, H, W) u8 in the kernel's f32 order: per dy the
-    row partials over dx, then added to the running sums."""
+    """(..., 3, H, W) u8 -> (..., 3, H, W) u8 in the kernel's f32 order: per
+    dy the row partials over dx, then added to the running sums; each board
+    on its own."""
     r = d // 2
     gc = _gc(sigma_color)
     sw = space_weights(d, sigma_space)
-    _, H, W = img.shape
+    H, W = img.shape[-2:]
     p = _reflect101_pad(img, r).float()
-    center = p[:, r : r + H, r : r + W]
+    center = p[..., :, r : r + H, r : r + W]
     num = den = 0.0
     for dy in range(d):
         rn = rd = 0.0
         for dx in range(d):
             if sw[dy, dx] == 0.0:
                 continue
-            nb = p[:, dy : dy + H, dx : dx + W]
-            cd = (nb - center).abs().sum(0)
+            nb = p[..., :, dy : dy + H, dx : dx + W]
+            cd = (nb - center).abs().sum(-3, keepdim=True)  # (..., 1, H, W)
             w = float(sw[dy, dx]) * torch.exp(cd * cd * gc)
             rn = rn + w * nb
             rd = rd + w
@@ -122,7 +127,7 @@ def _library() -> ctypes.CDLL:
     if _lib is None:
         lib = load("bilateral")
         lib.cbv_bilateral.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.POINTER(ctypes.c_float), ctypes.c_void_p, ctypes.c_void_p,
         ]
         lib.cbv_bilateral.restype = ctypes.c_int
@@ -138,19 +143,23 @@ def _library() -> ctypes.CDLL:
 
 def bilateral_planar(img: torch.Tensor, d: int = 9, sigma_color: float = 75.0,
                      sigma_space: float = 75.0) -> torch.Tensor:
-    """cv2.bilateralFilter on a planar (3, H, W) u8 image, reflect-101."""
+    """cv2.bilateralFilter on planar (..., 3, H, W) u8 images, reflect-101,
+    each board on its own; on a card all boards in one launch."""
     if img.device.type == "cpu":
         return bilateral_reference(img, d, sigma_color, sigma_space)
     if img.device.type != "cuda":
         raise ValueError(f"bilateral_planar: image on {img.device}, expected CPU or CUDA")
-    if img.dtype != torch.uint8 or img.dim() != 3 or img.shape[0] != 3:
-        raise ValueError(f"bilateral_planar: expected (3, H, W) uint8, got "
+    if img.dtype != torch.uint8 or img.dim() < 3 or img.shape[-3] != 3:
+        raise ValueError(f"bilateral_planar: expected (..., 3, H, W) uint8, got "
                          f"{tuple(img.shape)} {img.dtype}")
     if d != KERNEL_D:
         raise ValueError(f"bilateral_planar: the kernel is built for d={KERNEL_D}, got {d}")
-    _, H, W = img.shape
+    H, W = img.shape[-2:]
     if min(H, W) <= d // 2:
         raise ValueError(f"bilateral_planar: image {H}x{W} smaller than the reflect border")
+    n = math.prod(img.shape[:-3])  # boards
+    if not 1 <= n <= MAX_BOARDS:
+        raise ValueError(f"bilateral_planar: {n} boards, the kernel takes 1 to {MAX_BOARDS}")
     img = img.contiguous()
     lib = _library()
     sw = space_weights(d, sigma_space)
@@ -159,7 +168,7 @@ def bilateral_planar(img: torch.Tensor, d: int = 9, sigma_color: float = 75.0,
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.cbv_bilateral(
-            img.data_ptr(), out.data_ptr(), H, W,
+            img.data_ptr(), out.data_ptr(), n, H, W,
             sw.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), table.data_ptr(), stream,
         )
     if rc != 0:

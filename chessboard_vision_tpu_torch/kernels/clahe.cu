@@ -2,7 +2,13 @@
 // histograms with the LUTs built from them, and the bilinear mix of the
 // neighbour-tile LUTs.
 //
-// Both read the LAB-L image (H, W) u8, row-major, unpadded. CLAHE cuts it
+// Both read N LAB-L images (N, H, W) u8, row-major, unpadded, one launch
+// for all N: the board is a grid axis (blockIdx.y of the histogram,
+// blockIdx.z of the apply), as Pallas's batching rule gives the TPU kernels
+// a leading grid axis when the JAX meshed tick vmaps them over a slot's
+// boards. Each board reads its own plane and writes (reads) its own
+// (tiles^2, 256) histograms and LUTs; nothing is shared between boards, so
+// a board's result is bit-equal to its launch alone. CLAHE cuts each image
 // into tiles x tiles tiles of th x tw (th = ceil(H / tiles), likewise tw):
 // tile t = ty * tiles + tx covers rows [ty*th, (ty+1)*th) and columns
 // [tx*tw, (tx+1)*tw) of the reflect-101 padded image (th * tiles,
@@ -12,14 +18,14 @@
 // never build it. A plane that is already padded (H = th * tiles) reads
 // no reflection.
 //
-// cbv_clahe_hist: hist[t, v] = number of padded pixels of tile t with
-//   value v, (tiles^2, 256) i32, and, unless luts is null, the tiles' LUTs
-//   (tiles^2, 256) f32 in the same launch. Replaces chessboard_vision_tpu/
+// cbv_clahe_hist: hist[b, t, v] = number of padded pixels of tile t of
+//   board b with value v, (N, tiles^2, 256) i32, and, unless luts is null,
+//   the tiles' LUTs (N, tiles^2, 256) f32 in the same launch. Replaces chessboard_vision_tpu/
 //   ops/pallas/clahe_apply.py::clahe_hist_pallas_v3 and its any-tiles
 //   fallback clahe_hist_pallas (v1), which build one-hot operands for the
 //   TPU's matrix unit, and the torch ops of the LUT phase between the two
 //   kernels (chessboard_vision_tpu/ops/enhance.py::clahe_luts_from_hist).
-//   One block of TILE_THREADS per tile: lane l of each warp reads columns
+//   One block of TILE_THREADS per tile and board: lane l of each warp reads columns
 //   4l .. 4l+3 of the tile's padded rows (128 columns a pass), each warp
 //   its own rows, its loads of TILE_ROW_BATCH rows issued before it counts
 //   any; the counts go into the tile's 256 bins in shared memory
@@ -27,7 +33,8 @@
 //   excess redistribution, an inclusive scan by warp shuffles, the scaled
 //   CDF). Lanes are not merged before their atomics: a constant plane,
 //   every lane of a warp on one bin, counts as fast as random u8. Integer counts in any order are exact: launches are bit-equal.
-//   That is 64 blocks at tiles = 8, fewer than the 132 SMs; the kernel is
+//   That is 64 blocks a board at tiles = 8, fewer than the 132 SMs for one
+//   board (512 for a tick of 8 boards); the kernel is
 //   bound by latency, and a merge across blocks costs more than more blocks
 //   save: row strips over ~256 blocks, merged by integer atomics into a
 //   zeroed scratch with a per-tile-row arrival counter, measured 2.3x
@@ -40,7 +47,7 @@
 //   scale), 0, 255) with scale = f32(255 / area) from the host and cdf the
 //   inclusive sum of h' (cdf <= area < 2^24: exact in f32).
 //
-// cbv_clahe_apply: out[y, x] = round(sum over the <= 2 tile columns c with
+// cbv_clahe_apply: out[b, y, x] = round(sum over the <= 2 tile columns c with
 //   wx[c] != 0 of wx[c] * ((1 - fy) * lut[ty0, c][v] + fy * lut[ty1, c][v]))
 //   with fy, ty0, ty1 from y / th - 0.5 and wx from x / tw - 0.5 (floor),
 //   v = img[y, x], round half to even, clipped to u8. Replaces
@@ -151,9 +158,9 @@ __device__ void build_lut(const int* h, float* lut, int clip, float scale) {
   }
 }
 
-// cbv_clahe_hist's kernel: block t counts tile t = ty * tiles + tx, lane l
-// of warp w reading columns 4l .. 4l+3 (128 a pass) of rows w, w + WARPS,
-// ...; then warp 0 builds the tile's LUT.
+// cbv_clahe_hist's kernel: block (t, b) counts tile t = ty * tiles + tx of
+// board b, lane l of warp w reading columns 4l .. 4l+3 (128 a pass) of rows
+// w, w + WARPS, ...; then warp 0 builds the tile's LUT.
 template <int V>
 __global__ void __launch_bounds__(TILE_THREADS)
 clahe_hist_tile_kernel(const uint8_t* __restrict__ img, int H, int W, int th, int tw, int tiles,
@@ -163,6 +170,9 @@ clahe_hist_tile_kernel(const uint8_t* __restrict__ img, int H, int W, int th, in
   if (threadIdx.x < 256) bins[threadIdx.x] = 0;
   __syncthreads();
   const int t = blockIdx.x, ty = t / tiles, tx = t % tiles;
+  img += static_cast<size_t>(H) * W * blockIdx.y;  // this block's board
+  hist += static_cast<size_t>(tiles) * tiles * 256 * blockIdx.y;
+  if (luts != nullptr) luts += static_cast<size_t>(tiles) * tiles * 256 * blockIdx.y;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   uint32_t seen = 0;  // kLoadOnly: the loaded words, folded into one count
   for (int c0 = 4 * lane; c0 < tw; c0 += 128) {
@@ -225,6 +235,9 @@ clahe_apply_kernel(const uint8_t* __restrict__ img, const float* __restrict__ lu
                    int tiles) {
   const int x0 = blockIdx.x * APPLY_COLS + 4 * threadIdx.x;
   if (x0 >= W) return;
+  img += static_cast<size_t>(H) * W * blockIdx.z;  // this block's board
+  out += static_cast<size_t>(H) * W * blockIdx.z;
+  luts += static_cast<size_t>(tiles) * tiles * 256 * blockIdx.z;
   // The thread's 4 columns: LUT offsets of their tile columns, weights.
   int c0[4], c1[4];
   float gx0[4], gx1[4];
@@ -308,14 +321,14 @@ clahe_apply_kernel(const uint8_t* __restrict__ img, const float* __restrict__ lu
 // Both launch on `stream` and return cudaGetLastError() of the launch
 // (0 = success).
 
-// img: (H, W) u8 with (tiles - 1) * th < H <= th * tiles and th * tiles -
-// H < H (likewise W); hist: (tiles^2, 256) i32; luts: (tiles^2, 256) f32
-// or null (histograms only); clip: the absolute clip limit; scale:
-// f32(255 / (th * tw)).
-extern "C" int cbv_clahe_hist(const void* img, int H, int W, int th, int tw, int tiles,
+// img: (N, H, W) u8, 1 <= N <= 65535, with (tiles - 1) * th < H <= th *
+// tiles and th * tiles - H < H (likewise W); hist: (N, tiles^2, 256) i32;
+// luts: (N, tiles^2, 256) f32 or null (histograms only); clip: the absolute
+// clip limit; scale: f32(255 / (th * tw)).
+extern "C" int cbv_clahe_hist(const void* img, int N, int H, int W, int th, int tw, int tiles,
                               void* hist, void* luts, int clip, float scale, void* stream) {
   clahe_hist_tile_kernel<kHistFull>
-      <<<tiles * tiles, TILE_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      <<<dim3(tiles * tiles, N), TILE_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const uint8_t*>(img), H, W, th, tw, tiles, static_cast<int*>(hist),
           static_cast<float*>(luts), clip, scale);
   return static_cast<int>(cudaGetLastError());
@@ -323,7 +336,7 @@ extern "C" int cbv_clahe_hist(const void* img, int H, int W, int th, int tw, int
 
 // An ablation variant of the histogram kernel (HistVariant: 1 kLoadOnly,
 // 2 kCountOnly; 0 is the production kernel) with cbv_clahe_hist's
-// arguments and launch; cudaErrorInvalidValue for an unknown variant.
+// arguments and launch for one image (H, W); cudaErrorInvalidValue for an unknown variant.
 extern "C" int cbv_clahe_hist_variant(int variant, const void* img, int H, int W, int th,
                                       int tw, int tiles, void* hist, void* luts, int clip,
                                       float scale, void* stream) {
@@ -350,14 +363,14 @@ extern "C" int cbv_clahe_hist_variant(int variant, const void* img, int H, int W
   return static_cast<int>(cudaGetLastError());
 }
 
-// img, out: (H, W) u8 with (tiles - 1) * th < H <= th * tiles (likewise
-// W); luts: (tiles^2, 256) f32 integer-valued; inv_th, inv_tw: 1/th and
-// 1/tw rounded to f32.
-extern "C" int cbv_clahe_apply(const void* img, const void* luts, void* out, int H, int W,
-                               float inv_th, float inv_tw, int tiles, void* stream) {
+// img, out: (N, H, W) u8, 1 <= N <= 65535, with (tiles - 1) * th < H <=
+// th * tiles (likewise W); luts: (N, tiles^2, 256) f32 integer-valued,
+// board b's LUTs for image b; inv_th, inv_tw: 1/th and 1/tw rounded to f32.
+extern "C" int cbv_clahe_apply(const void* img, const void* luts, void* out, int N, int H,
+                               int W, float inv_th, float inv_tw, int tiles, void* stream) {
   const int rows = APPLY_WARPS * APPLY_ROWS;
   const dim3 block(32, APPLY_WARPS);
-  const dim3 grid((W + APPLY_COLS - 1) / APPLY_COLS, (H + rows - 1) / rows);
+  const dim3 grid((W + APPLY_COLS - 1) / APPLY_COLS, (H + rows - 1) / rows, N);
   const bool word = W % 4 == 0 && reinterpret_cast<uintptr_t>(img) % 4 == 0 &&
                     reinterpret_cast<uintptr_t>(out) % 4 == 0;
   const auto s = static_cast<cudaStream_t>(stream);
@@ -375,7 +388,7 @@ extern "C" int cbv_clahe_apply(const void* img, const void* luts, void* out, int
 
 // An ablation variant of the apply kernel (ApplyVariant: 1 kLookupOnly, 2
 // kBlendOnly, 3 kCopy; 0 is the production kernel) with cbv_clahe_apply's
-// arguments, on its word path: W % 4 == 0 and 4-byte aligned planes, else
+// arguments for one image (H, W), on its word path: W % 4 == 0 and 4-byte aligned planes, else
 // cudaErrorInvalidValue (so is an unknown variant).
 extern "C" int cbv_clahe_apply_variant(int variant, const void* img, const void* luts,
                                        void* out, int H, int W, float inv_th, float inv_tw,

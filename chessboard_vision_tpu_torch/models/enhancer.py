@@ -4,9 +4,11 @@ Counterpart of chessboard_vision_tpu.models.enhancer (reference
 frame_enhancer.py ImageEnhancer): (0) HSV color-profile remap, (1) CLAHE
 clip 3.0, 8x8 tiles on LAB-L, (2) bilateral d=9, sigma 75/75, (3) 3x3
 sharpen, (4) min-max normalize; plus ``prepare_analysis`` (gray -> 5x5
-Gaussian -> Otsu). The functions take planar (3, H, W) u8 tensors; the
-CLAHE phases and the bilateral run the port's CUDA kernels when the tensor
-is on a card and their plain versions when it is on the CPU. The
+Gaussian -> Otsu). The functions take planar (3, H, W) u8 tensors, or a
+batch of boards (..., 3, H, W), each board enhanced on its own (as the
+JAX meshed tick vmaps them); the CLAHE phases and the bilateral run the
+port's CUDA kernels when the tensor is on a card, one launch each for the
+whole batch, and their plain versions when it is on the CPU. The
 bilateral's ``backend`` ("auto", "kernel", "plain": ops/enhance.py) names
 one of the two explicitly, as the JAX package's Pallas-else-XLA seam does.
 """
@@ -47,7 +49,7 @@ def _planar(hwc: torch.Tensor) -> torch.Tensor:
 
 
 def apply_color_profile(planar: torch.Tensor, profile: dict) -> torch.Tensor:
-    """HSV remap stage (reference frame_enhancer.py:56-99) on (3, H, W) u8."""
+    """HSV remap stage (reference frame_enhancer.py:56-99) on (..., 3, H, W) u8."""
     if not profile:
         return planar
     p = {**DEFAULT_PROFILE, **profile}
@@ -75,19 +77,20 @@ def bilateral(planar: torch.Tensor, backend: str = "auto") -> torch.Tensor:
 
 def correct_lighting(planar: torch.Tensor, clahe_clip: float = 3.0,
                      clahe_tiles: int = 8) -> torch.Tensor:
-    """CLAHE on the L channel of a Lab round trip, (3, H, W) u8."""
+    """CLAHE on the L channel of a Lab round trip, (..., 3, H, W) u8."""
     lab = color_ops.planar_bgr2lab(planar)
-    l_enh = enh_ops.clahe(lab[0], clahe_clip, clahe_tiles)
-    return color_ops.planar_lab2bgr(torch.cat([l_enh[None], lab[1:]], 0))
+    # one copy of the boards' L planes: B3 and B4 read contiguous planes
+    l_enh = enh_ops.clahe(lab[..., 0, :, :].contiguous(), clahe_clip, clahe_tiles)
+    return color_ops.planar_lab2bgr(torch.cat([l_enh.unsqueeze(-3), lab[..., 1:, :, :]], -3))
 
 
 def enhance_planar(planar: torch.Tensor, profile: Optional[dict] = None,
                    clahe_clip: float = 3.0, clahe_tiles: int = 8,
                    bilateral_backend: str = "auto") -> torch.Tensor:
-    """The full 5-stage enhancement on a (3, H, W) u8 planar image
-    (reference process_pipeline, frame_enhancer.py:161-181): color profile
-    -> CLAHE on LAB-L -> bilateral (on ``bilateral_backend``) -> sharpen ->
-    min-max normalize."""
+    """The full 5-stage enhancement on a (3, H, W) u8 planar image, or on
+    each board of (..., 3, H, W) (reference process_pipeline,
+    frame_enhancer.py:161-181): color profile -> CLAHE on LAB-L ->
+    bilateral (on ``bilateral_backend``) -> sharpen -> min-max normalize."""
     x = apply_color_profile(planar, profile or {})
     x = correct_lighting(x, clahe_clip, clahe_tiles)
     return normalize_minmax(sharpen(bilateral(x, bilateral_backend)))

@@ -286,10 +286,14 @@ class VisionPipeline:
 
     def _enhanced_squares(self, boards: torch.Tensor) -> torch.Tensor:
         """(..., 3, B, B) color boards -> (n, H+2p, W+2p) enhanced padded
-        gray squares, each board enhanced on its own."""
-        squares = [self._enhanced_board_squares(b)
-                   for b in boards.reshape((-1,) + tuple(boards.shape[-3:]))]
-        return squares[0] if len(squares) == 1 else torch.cat(squares)
+        gray squares, 64 a board in board order: every board enhanced on
+        its own in one batched enhancement (one launch each of B2-B4 for
+        all boards), then grayscaled and its squares gathered."""
+        boards = enhance_planar(boards.reshape((-1,) + tuple(boards.shape[-3:])),
+                                self.enhancer_profile, bilateral_backend=self.bilateral_backend)
+        gray = planar_bgr2gray(boards)  # (N, B, B)
+        squares = gray.reshape(gray.shape[0], -1)[:, self._ext_index]  # (N, 64, H+2p, W+2p)
+        return squares.reshape((-1,) + tuple(squares.shape[-2:]))
 
     def blur(self, gray_padded: torch.Tensor):
         """Padded gray squares (n, H+2p, W+2p) u8 -> (the piece cascade's
@@ -298,13 +302,6 @@ class VisionPipeline:
         if self.change_blur == 5:
             return gray, None
         return gray, gaussian_blur_valid(gray_padded, self.change_blur, pad=self._pad)
-
-    def _enhanced_board_squares(self, board: torch.Tensor) -> torch.Tensor:
-        """Warped color board (3, B, B) u8 -> enhanced padded gray squares
-        (64, H+2p, W+2p) u8: enhance -> grayscale -> square extraction."""
-        board = enhance_planar(board, self.enhancer_profile,
-                               bilateral_backend=self.bilateral_backend)
-        return planar_bgr2gray(board).reshape(-1)[self._ext_index]
 
     def _step_impl(self, state, frame, s2c_mask, s2c_given, refresh_refs,
                    use_smoothing=True, use_delta=True):

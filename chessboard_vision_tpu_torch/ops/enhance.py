@@ -55,11 +55,11 @@ def use_kernel(t: torch.Tensor, backend: str, what: str) -> bool:
 
 def clahe(img: torch.Tensor, clip_limit: float = 3.0, tiles: int = 8,
           backend: str = "auto") -> torch.Tensor:
-    """cv2.createCLAHE(clip_limit, (tiles, tiles)).apply for a (H, W) u8
-    image: the histograms of its reflect pad to whole tiles with their LUTs
-    (one kernel), then the LUT apply (one kernel); ``backend`` as in the
-    module docstring."""
-    H, W = img.shape
+    """cv2.createCLAHE(clip_limit, (tiles, tiles)).apply for (..., H, W) u8
+    images, each on its own: the histograms of their reflect pad to whole
+    tiles with their LUTs (one kernel for all images), then the LUT apply
+    (one kernel); ``backend`` as in the module docstring."""
+    H, W = img.shape[-2:]
     th, tw = -(-H // tiles), -(-W // tiles)
     area = th * tw
     clip_abs = max(int(clip_limit * area / 256), 1)

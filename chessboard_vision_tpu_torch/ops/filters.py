@@ -130,10 +130,14 @@ def sharpen(x: torch.Tensor) -> torch.Tensor:
 
 
 def normalize_minmax(x: torch.Tensor, alpha: float = 0.0, beta: float = 255.0) -> torch.Tensor:
-    """cv2.normalize(..., NORM_MINMAX) on u8, joint min/max over all pixels.
-    A constant image gives all-``alpha`` (cv2 saturates 0*inf to 0)."""
+    """cv2.normalize(..., NORM_MINMAX) on u8, a joint min/max over all
+    pixels of each image: (..., 3, H, W) planar images each on its own (the
+    last three axes; a 2-D image is one image), as cv2 normalizes one image
+    and the JAX function does under vmap. A constant image gives
+    all-``alpha`` (cv2 saturates 0*inf to 0)."""
     xf = x.float()
-    mn, mx = xf.min(), xf.max()
+    dims = tuple(range(-min(x.dim(), 3), 0))
+    mn, mx = xf.amin(dims, keepdim=True), xf.amax(dims, keepdim=True)
     scale = (beta - alpha) / torch.clamp(mx - mn, min=1e-38)
     out = torch.where(mx > mn, (xf - mn) * scale + alpha, alpha)
     return torch.round(out).clamp(0, 255).to(torch.uint8)

@@ -379,12 +379,11 @@ class MultiStreamPipeline:
         else:
             if tp.is_hwc(frames):  # the per-stream plans resample planar frames
                 frames = frames.movedim(-1, -3)
-            if p.with_enhancer:
-                padded = torch.cat([
-                    p._enhanced_board_squares(mr.warp_board_color(frames[i], plan, dims,
-                                                                  p._tile_index))
+            if p.with_enhancer:  # each board warped with its plan, all enhanced at once
+                padded = p._enhanced_squares(torch.stack([
+                    mr.warp_board_color(frames[i], plan, dims, p._tile_index)
                     for i, (plan, dims) in enumerate(slot.plans)
-                ])
+                ]))
             else:
                 gray = planar_bgr2gray(frames)  # (n, Hf, Wf)
                 padded = torch.cat([mr.resample_gray_u8(gray[i], plan, dims)

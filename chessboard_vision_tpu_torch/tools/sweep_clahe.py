@@ -96,7 +96,7 @@ class Variant:
     def hist_luts(self, img, th, tw, clip):
         hist = torch.empty((TILES * TILES, 256), dtype=torch.int32, device=img.device)
         luts = torch.empty((TILES * TILES, 256), dtype=torch.float32, device=img.device)
-        rc = self.lib.cbv_clahe_hist(img.data_ptr(), img.shape[0], img.shape[1], th, tw, TILES,
+        rc = self.lib.cbv_clahe_hist(img.data_ptr(), 1, img.shape[0], img.shape[1], th, tw, TILES,
                                      hist.data_ptr(), luts.data_ptr(),
                                      clip, kc._lut_scale(th * tw),
                                      torch.cuda.current_stream().cuda_stream)
@@ -105,7 +105,7 @@ class Variant:
 
     def apply(self, img, luts, th, tw):
         out = torch.empty_like(img)
-        rc = self.lib.cbv_clahe_apply(img.data_ptr(), luts.data_ptr(), out.data_ptr(),
+        rc = self.lib.cbv_clahe_apply(img.data_ptr(), luts.data_ptr(), out.data_ptr(), 1,
                                       img.shape[0], img.shape[1], kc._inv(th), kc._inv(tw),
                                       TILES, torch.cuda.current_stream().cuda_stream)
         kc._raise_if(rc, self.lib, "clahe_apply")

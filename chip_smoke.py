@@ -52,6 +52,12 @@ the last line:
    - B4 CLAHE LUT apply on the same three unpadded planes with their LUTs:
      bit-equal, two launches bit-equal.
    B3's and B4's lines give their time beside their earlier designs' too.
+   Then B2-B4 with a board axis (the enhanced tick's form): 8 rendered
+   980^2 boards, at N = 1 and 8 and on a mixed batch of 3 (rendered, random
+   u8, constant), each kernel one launch for the N boards, bit-equal to its
+   plain version and to N single-board launches; its device time a launch
+   and a board at N = 1 and 8 beside N single-board launches, the plain
+   version and the bound at N boards.
    Then B2-B4 at the whole 1080x1920 frame (api.enhance_frame's shape):
    B2 on the rendered frame and on random u8 (bit-equal to plain; the
    frame's flat background is a best case for its color-weight lookups),
@@ -128,7 +134,8 @@ the last line:
      shifted, equal to two independent pipelines of the same kind.
    - enhanced 8 streams: streams 0 and 5 equal to the single-stream
      enhanced pipeline on the same frames on the card; one tick launches
-     B1 once and B2, B3 and B4 once a stream.
+     B1 once and B2, B3 and B4 once, each for the 8 boards (so does the
+     enhanced per-stream-geometry tick for its 2).
    - MultiStreamSession with 8 streams: every stream commits its move and
      reaches its FEN; a checkpoint saved mid-game and resumed into a fresh
      session makes the same commits on the same ticks.
@@ -146,7 +153,9 @@ the last line:
    tests' tolerance, the FSM outputs exactly), every stream's occupancy
    equal to its rendered truth; one base pipeline a distinct device; B1
    once a slot a tick on the TMA kernel at the slot's width (N = 64), B2,
-   B3 and B4 once a stream a tick on the enhanced mesh. Then ms a tick of
+   B3 and B4 once a slot a tick on the enhanced meshes: dp 8 and, for one
+   tick, dp x sp 4 x 2, whose slots hold 2 streams each (one launch for a
+   slot's boards, not one a stream). Then ms a tick of
    unsharded, dp 8 and 4 x 2 in turns (unsharded, dp 8, 4 x 2, 4 x 2, dp
    8, unsharded) with device busy and ops a tick: on one card the host
    cost of sharding, not a scaling figure.
@@ -945,6 +954,99 @@ def enhancement_kernels_phase(pipe, frame, smi):
     return records
 
 
+BATCH_BOARDS = (1, 8)  # boards a launch: one stream, and an 8-stream tick
+
+
+def batched_enhancement_phase(pipe, camera, smi):
+    """B2-B4 with a board axis at the enhanced path's 980^2 boards: 8
+    distinct renders of the start position warped by gather (one call for
+    the 8 frames), lit as the path lights them (B2's input) and their Lab-L
+    (B3's and B4's). At N = 1 and 8, and on a mixed batch (a rendered
+    board, random u8, a constant board), each kernel is ONE launch for the
+    N boards, bit-equal to its plain version on the batch and to N
+    single-board launches. Then each kernel's device time a launch at N = 1
+    and 8 (kernel_vs_plain_ms: plain, kernel, kernel, plain) and a board,
+    beside N times the single-board launch, the plain version's time and
+    the bound at N boards (N times the per-board bound)."""
+    tiles = 8
+    frames = np.stack([camera.render(initial_occupancy(), np.random.default_rng(60 + i))
+                       for i in range(max(BATCH_BOARDS))])
+    boards = warp_ops.frame_to_board(on_card(frames), pipe.consts.dg).movedim(-1, -3)
+    lit = correct_lighting(boards)  # (8, 3, B, B)
+    lab_l = planar_bgr2lab(boards)[:, 0].contiguous()  # (8, B, B), as correct_lighting hands it
+    _, C, H, W = lit.shape
+    th, tw = -(-H // tiles), -(-W // tiles)
+    clip = max(int(3.0 * th * tw / 256), 1)
+    n_lut = tiles * tiles * 256
+    g = torch.Generator(device=DEVICE).manual_seed(3)
+    rand = torch.randint(0, 256, (C, H, W), device=DEVICE, generator=g, dtype=torch.uint8)
+    mixed = torch.stack([lit[0], rand, torch.full_like(rand, 77)])
+
+    def one_launch(wrapper, call, what):
+        before = wrapper.launches
+        out = call()
+        check(wrapper.launches == before + 1,
+              f"{what}: {wrapper.launches - before} launches, want 1")
+        return out
+
+    for label, x in [(f"N={n}", lit[:n]) for n in BATCH_BOARDS] + [("mixed N=3", mixed)]:
+        got = one_launch(kb.bilateral_planar, lambda: kb.bilateral_planar(x),
+                         f"bilateral {label}")
+        check(torch.equal(got, kb.bilateral_reference(x)),
+              f"bilateral {label}: the batched launch differs from plain")
+        check(torch.equal(got, torch.stack([kb.bilateral_planar(b) for b in x])),
+              f"bilateral {label}: the batched launch differs from single-board launches")
+        lab = (planar_bgr2lab(x)[:, 0].contiguous() if label.startswith("mixed")
+               else lab_l[:len(x)])
+        hist, luts = one_launch(kc.clahe_hist_luts,
+                                lambda: kc.clahe_hist_luts(lab, th, tw, tiles, clip),
+                                f"clahe_hist_luts {label}")
+        want = kc.clahe_hist_luts_reference(lab, th, tw, tiles, clip)
+        singles = [kc.clahe_hist_luts(b, th, tw, tiles, clip) for b in lab]
+        for i, what in enumerate(("histograms", "LUTs")):
+            check(torch.equal((hist, luts)[i], want[i]),
+                  f"clahe_hist_luts {label}: batched {what} differ from plain")
+            check(torch.equal((hist, luts)[i], torch.stack([s[i] for s in singles])),
+                  f"clahe_hist_luts {label}: batched {what} differ from single-board launches")
+        out = one_launch(kc.clahe_apply, lambda: kc.clahe_apply(lab, luts, th, tw, tiles),
+                         f"clahe_apply {label}")
+        check(torch.equal(out, kc.clahe_apply_reference(lab, luts, th, tw, tiles)),
+              f"clahe_apply {label}: the batched launch differs from plain")
+        check(torch.equal(out, torch.stack([kc.clahe_apply(b, t, th, tw, tiles)
+                                            for b, t in zip(lab, luts)])),
+              f"clahe_apply {label}: the batched launch differs from single-board launches")
+    torch.cuda.synchronize()
+    phase("batched", f"B2, B3 (histograms + LUTs) and B4 on {C}x{H}x{W} boards, N = "
+          f"{', '.join(map(str, BATCH_BOARDS))} rendered and a mixed N = 3 (rendered, random "
+          f"u8, constant): one launch each for the N boards, bit-equal to the plain version and "
+          f"to N single-board launches")
+
+    luts8 = kc.clahe_hist_luts(lab_l, th, tw, tiles, clip)[1]
+    rows = (  # name, kernel(n), plain(n), iters, per-board (bytes, operations)
+        ("bilateral", lambda n: kb.bilateral_planar(lit[:n]),
+         lambda n: kb.bilateral_reference(lit[:n]), 10,
+         (2 * C * H * W, BILATERAL_TAPS * BILATERAL_FLOPS_PER_TAP * H * W)),
+        ("clahe_hist_luts", lambda n: kc.clahe_hist_luts(lab_l[:n], th, tw, tiles, clip),
+         lambda n: kc.clahe_hist_luts_reference(lab_l[:n], th, tw, tiles, clip), 50,
+         (H * W + 8 * n_lut, th * tiles * tw * tiles)),
+        ("clahe_apply", lambda n: kc.clahe_apply(lab_l[:n], luts8[:n], th, tw, tiles),
+         lambda n: kc.clahe_apply_reference(lab_l[:n], luts8[:n], th, tw, tiles), 50,
+         (2 * H * W + 4 * n_lut, 10 * H * W)),
+    )
+    for name, kernel, plain, iters, (nbytes, flops) in rows:
+        one = None
+        for n in BATCH_BOARDS:
+            ms, plain_ms, held = kernel_vs_plain_ms(functools.partial(kernel, n),
+                                                    functools.partial(plain, n), iters)
+            one = ms if one is None else one
+            b, by = bound(n * nbytes, n * flops, F32_FLOPS)
+            phase("batched", f"{name} N={n}: {ms * 1e3:.2f} us a launch (held-stream CUDA "
+                  f"events {held * 1e3:.2f}), {ms / n * 1e3:.2f} us a board; {n} x the "
+                  f"single-board launch {n * one * 1e3:.2f} us ({n * one / ms:.2f}x); plain "
+                  f"{plain_ms * 1e3:.1f} us; bound at N={n} {b * 1e3:.2f} us ({by}), "
+                  f"{b / ms:.0%} of it; on {smi}")
+
+
 # Each kernel of the port by the name of its records: (B#, its stage).
 KERNEL_STAGE = {"score_matmul_kernel": ("B1", "hough"), "bilateral_kernel": ("B2", "enhance"),
                 "clahe_hist_tile_kernel": ("B3", "enhance"),
@@ -1350,9 +1452,9 @@ def counted(total):
 
 def check_tick(got, n, label, enhanced=False):
     """One tick of n streams: B1 once, on the TMA kernel with n*64 columns;
-    B2, B3 (through clahe_hist_luts) and B4 once a stream when enhanced,
-    else not at all."""
-    k = n if enhanced else 0
+    B2, B3 (through clahe_hist_luts) and B4 once when enhanced (one launch
+    for the n boards), else not at all."""
+    k = 1 if enhanced else 0
     want = {"score_matmul": 1, "bilateral": k, "clahe_hist": 0, "clahe_hist_luts": k,
             "clahe_apply": k}
     check(got == want, f"{label}: launches in one tick {got}, want {want}")
@@ -1826,10 +1928,10 @@ FLEET_SLOTS = 2  # slots a fleet process: 2 of its 4 streams a slot
 def check_mesh_tick(got, ms, label, enhanced=False):
     """One tick of a meshed pipeline: B1 once a slot, on the TMA kernel at
     the slot's width (its streams times its squares); B2, B3 (through
-    clahe_hist_luts) and B4 once a stream and space slot when enhanced,
-    else not at all."""
+    clahe_hist_luts) and B4 once a slot when enhanced (one launch for the
+    slot's boards), else not at all."""
     slots = len(ms.slots)
-    k = sum(len(s.block.streams) for s in ms.slots) if enhanced else 0
+    k = slots if enhanced else 0
     want = {"score_matmul": slots, "bilateral": k, "clahe_hist": 0, "clahe_hist_luts": k,
             "clahe_apply": k}
     check(got == want, f"{label}: launches in one tick {got}, want {want}")
@@ -1892,7 +1994,7 @@ def mesh_phase(corners, g, frames, smi):
     each showing its own first move (stream 0: e2e4), on slots spread over
     the cards (one card: cuda:0 eight times): dp 8, dp x sp 4 x 2,
     per-stream geometry (odd rigs' corners shifted) on dp 8, and enhanced
-    on dp 8, each against the unsharded pipeline and one single-stream
+    on dp 8 and (one tick) on dp x sp 4 x 2, each against the unsharded pipeline and one single-stream
     pipeline a stream, with the launch counts set to 0 just before each
     meshed call and read just after it; then ms a tick of unsharded, dp 8
     and 4 x 2 in turns. Returns the path's counts."""
@@ -1958,7 +2060,15 @@ def mesh_phase(corners, g, frames, smi):
                       [(enhanced, on_card)] * n, refs, ticks, "enhanced dp 8", launches,
                       enhanced=True)
     phase("mesh", f"enhanced dp 8: equal to the unsharded enhanced pipeline and {n} "
-          "single-stream enhanced pipelines; B2, B3 and B4 once a stream a tick")
+          "single-stream enhanced pipelines; B2, B3 and B4 once a slot a tick")
+    ms = tms.MultiStreamPipeline(g, n, mesh=dpsp, with_enhancer=True)
+    mesh_vs_unsharded(ms, tms.MultiStreamPipeline(g, n, with_enhancer=True, device=DEVICE),
+                      [(enhanced, on_card)] * n, refs, ticks[:1], "enhanced dp x sp 4x2",
+                      launches, enhanced=True)
+    phase("mesh", f"enhanced dp x sp 4x2 ({len(ms.slots[0].block.streams)} streams a slot): "
+          f"equal to the unsharded enhanced pipeline and {n} single-stream enhanced "
+          f"pipelines; B2, B3 and B4 once a slot a tick ({len(ms.slots)}), each launch "
+          "for the slot's boards, not once a stream and slot")
     del ms, enhanced
 
     frame_sets = [np.stack(fs[:n]) for fs in sets]
@@ -2745,11 +2855,12 @@ def live_streams_phase(smi, launches):
                     break
             after_rebuild = {name: fn.launches - before[name] for name, fn in COUNTERS.items()}
         ticks = sess.frame_count - rebuilt_at
-        k = n * ticks if enhanced else 0
+        k = ticks if enhanced else 0
         want = {"score_matmul": ticks, "bilateral": k, "clahe_hist": 0, "clahe_hist_luts": k,
                 "clahe_apply": k}
         check(after_rebuild == want, f"{label}: launches on the rebuilt per-stream plans "
-              f"{after_rebuild}, want {want} (B1 once a tick, B2-B4 once a stream a tick)")
+              f"{after_rebuild}, want {want} (B1 once a tick, B2-B4 once a tick for the "
+              f"{n} boards)")
         check(all(st.game.get_fen() == after.fen() for st in sess.streams), f"{label}: FEN")
         check(got["score_matmul"] >= sess.frame_count, f"{label}: B1 launches {got}")
         plain = [ms for ms, rebuilt in checks if not rebuilt]
@@ -3549,6 +3660,7 @@ def main():
     records = [score_matmul_phase(pipe, frame, smi)]
     records[0]["max_abs_err"] = max(records[0]["max_abs_err"], b1_plans_phase(smi))
     records += enhancement_kernels_phase(pipe, frame, smi)
+    batched_enhancement_phase(pipe, camera, smi)
     whole_frame_phase(frame, smi)
     elapsed("kernels")
 

@@ -546,3 +546,32 @@ def test_enhancer_backends_on_card(cuda):
         with pytest.raises(ValueError):
             tenh.clahe(tiny[0], backend=backend)
     assert tenhancer.bilateral(tiny, "plain").shape == tiny.shape
+
+
+@pytest.mark.parametrize("n", [1, 3, 8])
+@pytest.mark.parametrize("shape", [(96, 96), (91, 86), (980, 980)])
+def test_enhancement_kernels_batched_one_launch(cuda, n, shape):
+    """B2, B3 (histograms + LUTs) and B4 on n boards: one launch each,
+    bit-equal to the plain version on the batch and to n single-board
+    launches, also at an odd width (the byte paths) and at the 1080p board."""
+    g = torch.Generator(device=cuda).manual_seed(n * 1000 + shape[1])
+    img = torch.randint(0, 256, (n, 3) + shape, dtype=torch.uint8, device=cuda, generator=g)
+    tiles = 8
+    th, tw = -(-shape[0] // tiles), -(-shape[1] // tiles)
+    clip = max(int(3.0 * th * tw / 256), 1)
+    before = (kb.bilateral_planar.launches, kc.clahe_hist_luts.launches, kc.clahe_apply.launches)
+    bil = kb.bilateral_planar(img)
+    lab = img[:, 0].contiguous()
+    hist, luts = kc.clahe_hist_luts(lab, th, tw, tiles, clip)
+    out = kc.clahe_apply(lab, luts, th, tw, tiles)
+    assert (kb.bilateral_planar.launches, kc.clahe_hist_luts.launches,
+            kc.clahe_apply.launches) == tuple(b + 1 for b in before)
+    assert torch.equal(bil, kb.bilateral_reference(img))
+    assert torch.equal(bil, torch.stack([kb.bilateral_planar(b) for b in img]))
+    want = kc.clahe_hist_luts_reference(lab, th, tw, tiles, clip)
+    assert torch.equal(hist, want[0]) and torch.equal(luts, want[1])
+    singles = [kc.clahe_hist_luts(b, th, tw, tiles, clip) for b in lab]
+    assert torch.equal(luts, torch.stack([s[1] for s in singles]))
+    assert torch.equal(out, kc.clahe_apply_reference(lab, luts, th, tw, tiles))
+    assert torch.equal(out, torch.stack([kc.clahe_apply(b, t, th, tw, tiles)
+                                         for b, t in zip(lab, luts)]))
