@@ -1,0 +1,225 @@
+# Frozen copy of chessboard_vision_tpu_torch/ops/matmul_resample.py at commit 9f9af32, for the
+# benchmark's plain reference: imports rewritten to this folder, nothing else
+# changed unless a "reference:" comment says so. reference: one word of the module docstring changed.
+"""Bilinear resample of a frame at planned coordinates: the padded gray
+squares, (64, Qr, Qc), and the warped color board of the enhanced path.
+
+Counterpart of chessboard_vision_tpu.ops.matmul_resample. ``build_plan``
+is the JAX package's numpy plan construction, unchanged, so the plans are equal
+array for array. ``resample`` computes the same bilinear samples as a
+gather of the four taps and a lerp with the plan's ``fx``/``fy`` (the JAX
+package's one-hot selection matmuls exist only because TPU XLA serializes
+gathers).
+
+Bit-equality of the u8 output with the JAX package on the CPU depends on
+the f32 rounding order (ops/xla_rounding.py). XLA:CPU contracts the JAX
+form's tap sum ``g = sum_c tap_c * w_c`` (only two weights nonzero) into
+one fused multiply-add: when the first nonzero tap sits at band offset 0
+its product is the fused one, ``fma(t0, w0, t1*w1)``; otherwise the
+second's is, ``fma(t1, w1, t0*w0)``. ``_lerp`` reproduces that,
+horizontally with ``ux_off`` and vertically with ``uy_off``.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from .device import resolve_device
+from .xla_rounding import fma
+
+
+def _round_up(x, m):
+    return ((x + m - 1) // m) * m
+
+
+class MatmulResamplePlan(NamedTuple):
+    """Per-square sampling constants, on the pipeline's device."""
+
+    row_base: torch.Tensor  # (64, Qr) i32 band start row (region-local)
+    col_ix: torch.Tensor  # (64, Qr, Qc) i32 left source col (region-local)
+    fx: torch.Tensor  # (64, Qr, Qc) f32
+    fy: torch.Tensor  # (64, Qr, Qc) f32
+    uy_off: torch.Tensor  # (64, Qr, Qc) i32 floor-row offset within band
+    zero_mask: torch.Tensor  # (64, Qr, Qc) bool -> output forced 0
+    col_base: torch.Tensor  # (64, Qc) i32 column-band start (region-local)
+    ux_off: torch.Tensor  # (64, Qr, Qc) i32 floor-col offset within col band
+    src_index: torch.Tensor  # (64, Qr, Qc) i64 flat source index of the
+    #   top-left tap (the row/col the JAX form's band selection lands on)
+
+
+class MatmulResampleDims(NamedTuple):
+    q_rows: int
+    q_cols: int
+    band: int  # B: band rows per output row (incl. +1 tap)
+    region_h: int  # RH
+    region_w: int  # RW
+    src_h: int
+    src_w: int
+    ry0: Tuple[int, ...]  # (64,) region row starts
+    rx0: Tuple[int, ...]  # (64,) region col starts
+    col_band: int = 0  # BC: cols per output col shared across all rows
+    # (0 = too wide; the JAX package then takes its per-row path)
+
+
+def build_plan(qx: np.ndarray, qy: np.ndarray, src_h: int, src_w: int, device="cuda"):
+    """qx/qy: (64, Qr, Qc) f32 source coords per padded-square pixel."""
+    device = resolve_device(device, "build_plan")
+    qx = np.asarray(qx, np.float32)
+    qy = np.asarray(qy, np.float32)
+    n_sq, Qr, Qc = qx.shape
+    ix = np.floor(qx).astype(np.int64)
+    iy = np.floor(qy).astype(np.int64)
+    fx = (qx - ix).astype(np.float32)
+    fy = (qy - iy).astype(np.float32)
+
+    # Out-of-source anchors produce 0 (interior calibrations never hit this).
+    bad = (ix < 0) | (ix + 1 >= src_w) | (iy < 0) | (iy + 1 >= src_h)
+    big = np.iinfo(np.int64).max
+
+    # Per-square source regions.
+    iy_v = np.where(bad, big, iy)
+    ix_v = np.where(bad, big, ix)
+    ry_min = np.minimum(iy_v.min(axis=(1, 2)), src_h - 2)
+    ry_max = np.maximum(np.where(bad, -1, iy).max(axis=(1, 2)) + 1, 1)
+    rx_min = np.minimum(ix_v.min(axis=(1, 2)), src_w - 2)
+    rx_max = np.maximum(np.where(bad, -1, ix).max(axis=(1, 2)) + 1, 1)
+    RH = int(_round_up(int((ry_max - ry_min).max()) + 2, 8))
+    RW = int(_round_up(int((rx_max - rx_min).max()) + 2, 8))
+    RH = min(RH, src_h)
+    RW = min(RW, src_w)
+    ry0 = np.clip(ry_min, 0, src_h - RH)
+    rx0 = np.clip(rx_min, 0, src_w - RW)
+
+    # Vertical band per (square, out-row), region-local.
+    iy_loc = iy - ry0[:, None, None]
+    row_min = np.where(bad, big, iy_loc).min(axis=2)
+    row_min = np.clip(row_min, 0, RH - 2)
+    B = int(np.where(bad, 0, iy_loc - row_min[:, :, None]).max()) + 2
+    row_base = np.clip(row_min, 0, RH - B)
+    uy_off = np.clip(np.where(bad, 0, iy_loc - row_base[:, :, None]), 0, B - 2)
+
+    ix_loc = np.clip(ix - rx0[:, None, None], 0, RW - 2)
+    ix_loc = np.where(bad, 0, ix_loc)
+
+    # Horizontal band per (square, out-column), shared across all rows.
+    col_min = np.where(bad, big, ix_loc).min(axis=1)  # (64, Qc)
+    col_min = np.clip(col_min, 0, RW - 2)
+    BC = int(np.where(bad, 0, ix_loc - col_min[:, None, :]).max()) + 2
+    col_base = np.clip(col_min, 0, RW - BC)
+    ux_off = np.clip(np.where(bad, 0, ix_loc - col_base[:, None, :]), 0, BC - 2)
+    col_band = BC if BC <= 16 else 0
+
+    # Absolute top-left tap: the band row/col the JAX form's selection
+    # matmuls pick (per-row path: col_ix directly).
+    src_row = ry0[:, None, None] + row_base[:, :, None] + uy_off
+    if col_band:
+        src_col = rx0[:, None, None] + col_base[:, None, :] + ux_off
+    else:
+        src_col = rx0[:, None, None] + ix_loc
+    src_index = src_row * src_w + src_col
+
+    def t(a, dtype=None):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
+
+    plan = MatmulResamplePlan(
+        row_base=t(row_base.astype(np.int32)),
+        col_ix=t(ix_loc.astype(np.int32)),
+        fx=t(fx),
+        fy=t(fy),
+        uy_off=t(uy_off.astype(np.int32)),
+        zero_mask=t(bad),
+        col_base=t(col_base.astype(np.int32)),
+        ux_off=t(ux_off.astype(np.int32)),
+        src_index=t(src_index.astype(np.int64)),
+    )
+    dims = MatmulResampleDims(
+        q_rows=Qr,
+        q_cols=Qc,
+        band=B,
+        region_h=RH,
+        region_w=RW,
+        src_h=src_h,
+        src_w=src_w,
+        ry0=tuple(int(v) for v in ry0),
+        rx0=tuple(int(v) for v in rx0),
+        col_band=col_band,
+    )
+    return plan, dims
+
+
+def _lerp(p0, p1, w0, w1, first_fused):
+    """p0*w0 + p1*w1 in XLA:CPU's contraction order (see the module doc)."""
+    return torch.where(first_fused, fma(p0, w0, p1 * w1), fma(p1, w1, p0 * w0))
+
+
+def resample(gray: torch.Tensor, plan: MatmulResamplePlan, dims: MatmulResampleDims,
+             dtype: torch.dtype = torch.float32):
+    """gray: (..., src_h, src_w) u8/f32 -> (..., 64, Qr, Qc) f32 bilinear
+    samples of each leading image (a planar frame's 3 channels at once).
+    reference: ``dtype`` other than float32 computes the taps and lerps in
+    that dtype with plain multiply-adds (the benchmark's lower-precision
+    control); float32 is the port's arithmetic, unchanged."""
+    if dtype != torch.float32:
+        src = gray.reshape(*gray.shape[:-2], -1).to(dtype)
+        idx, w = plan.src_index, dims.src_w
+        t00, t01 = src[..., idx], src[..., idx + 1]
+        t10, t11 = src[..., idx + w], src[..., idx + w + 1]
+        fx, fy = plan.fx.to(dtype), plan.fy.to(dtype)
+        top = t00 * (1 - fx) + t01 * fx
+        bot = t10 * (1 - fx) + t11 * fx
+        out = (top * (1 - fy) + bot * fy).float()
+        return torch.where(plan.zero_mask, 0.0, out)
+    src = gray.reshape(*gray.shape[:-2], -1).float()
+    idx = plan.src_index
+    w = dims.src_w
+    t00, t01 = src[..., idx], src[..., idx + 1]
+    t10, t11 = src[..., idx + w], src[..., idx + w + 1]
+    fx, fy = plan.fx, plan.fy
+    ox, oy = plan.ux_off == 0, plan.uy_off == 0
+    top = _lerp(t00, t01, 1.0 - fx, fx, ox)
+    bot = _lerp(t10, t11, 1.0 - fx, fx, ox)
+    out = _lerp(top, bot, 1.0 - fy, fy, oy)
+    return torch.where(plan.zero_mask, 0.0, out)
+
+
+def resample_gray_u8(gray_frame: torch.Tensor, plan, dims,
+                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """u8 output with the pipeline's round-half-even, clip convention."""
+    return torch.round(resample(gray_frame, plan, dims, dtype)).clamp(0, 255).to(torch.uint8)
+
+
+# ---------------------------------------------------------------------------
+# Board-level color warp (the with_enhancer path)
+# ---------------------------------------------------------------------------
+
+
+def board_tile_index(starts, tile: int, board_size: int) -> np.ndarray:
+    """(B, B) flat index into (64, T, T) tile samples of the tile that owns
+    each board pixel: BoardGeometry.board_tile_query_coords's overlapping
+    8x8 tiling (tile t = r*8+c covers rows starts[r]:starts[r]+T, columns
+    starts[c]:starts[c]+T), where row block r owns rows [r*T, (r+1)*T)
+    clipped to B, as in the JAX package's ``assemble_board_from_tiles``."""
+    pos = np.arange(board_size)
+    block = pos // tile
+    local = pos - np.asarray(starts)[block]  # row (or col) inside its tile
+    t = block[:, None] * 8 + block[None, :]
+    return (t * tile + local[:, None]) * tile + local[None, :]
+
+
+def assemble_board_from_tiles(tiles: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """(..., 64, T, T) tiles -> (..., B, B) board by one gather with
+    ``board_tile_index``'s index (the JAX package takes 64 static slices
+    and 9 concatenates per channel)."""
+    return tiles.reshape(*tiles.shape[:-3], -1)[..., index]
+
+
+def warp_board_color(planar_frame: torch.Tensor, plan: MatmulResamplePlan,
+                     dims: MatmulResampleDims, index: torch.Tensor) -> torch.Tensor:
+    """(3, Hf, Wf) u8 frame -> (3, B, B) u8 warped board: the tile plan's
+    bilinear samples of all three channels (``resample``'s rounding order,
+    bit-equal to the JAX package's per tile), rounded, then assembled."""
+    tiles = resample_gray_u8(planar_frame, plan, dims)  # (3, 64, T, T)
+    return assemble_board_from_tiles(tiles, index)
