@@ -16,3 +16,11 @@ def resolve_device(device="cuda", who: str = "the port") -> torch.device:
             "False; pass device='cpu' to run on the CPU"
         )
     return device
+
+
+def synchronize(device) -> None:
+    """Wait for the work queued on ``device``'s current stream, the one a
+    step's outputs come from; nothing on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()

@@ -28,6 +28,10 @@ control flags; of a tensor, the flags alone); the outputs stay on the
 device until ``outputs_to_numpy`` reads them back in one D2H copy. Only
 the exact backend waits on the device within a step: its Canny hysteresis
 reads a convergence flag back once a block of dilations (ops/canny.py).
+The step records its spans in utils/profiling.py's call table:
+``pipeline.step`` around ``pipeline.upload`` (the packing and the copy
+started; the bytes in ``pipeline.h2d_bytes``) and ``pipeline.enqueue``
+(the device work enqueued).
 """
 
 from __future__ import annotations
@@ -50,6 +54,7 @@ from chessboard_vision_tpu_torch.ops import warp as warp_ops
 from chessboard_vision_tpu_torch.ops.color import bgr2gray, planar_bgr2gray
 from chessboard_vision_tpu_torch.ops.filters import gaussian_blur_valid
 from chessboard_vision_tpu_torch.ops.layout import positions_to_mask
+from chessboard_vision_tpu_torch.utils.profiling import count, span
 
 
 class PipelineState(NamedTuple):
@@ -90,14 +95,18 @@ class StepOutputs(NamedTuple):
 _HOST_DTYPES = {torch.bool: np.bool_, torch.int32: np.int32, torch.float32: np.float32}
 
 
-def leaves_to_numpy(leaves) -> list:
-    """Device tensors of bool, i32 or f32 (any shapes) -> host numpy arrays,
-    in ONE D2H copy: every leaf is packed bit for bit into one int32 tensor
-    first."""
-    packed = torch.cat([
+def pack_leaves(leaves) -> torch.Tensor:
+    """Device tensors of bool, i32 or f32 (any shapes) -> one int32 tensor on
+    their device, every leaf packed into it bit for bit, for ONE D2H copy."""
+    return torch.cat([
         (x.view(torch.int32) if x.dtype == torch.float32 else x.to(torch.int32)).reshape(-1)
         for x in leaves
-    ]).cpu().numpy()
+    ])
+
+
+def unpack_leaves(packed: np.ndarray, leaves) -> list:
+    """``pack_leaves(leaves)`` read back to the host -> a numpy array of each
+    leaf's dtype and shape."""
     host, at = [], 0
     for x in leaves:
         v = packed[at : at + x.numel()].reshape(tuple(x.shape))
@@ -105,6 +114,12 @@ def leaves_to_numpy(leaves) -> list:
         dt = _HOST_DTYPES[x.dtype]
         host.append(v.view(dt) if dt == np.float32 else v.astype(dt))
     return host
+
+
+def leaves_to_numpy(leaves) -> list:
+    """Device tensors of bool, i32 or f32 (any shapes) -> host numpy arrays,
+    in ONE D2H copy (pack_leaves)."""
+    return unpack_leaves(pack_leaves(leaves).cpu().numpy(), leaves)
 
 
 def outputs_to_numpy(out: StepOutputs) -> StepOutputs:
@@ -376,7 +391,7 @@ class VisionPipeline:
         takes a host frame; a tensor keeps its layout."""
         packed_flags = np.concatenate([s2c_mask, np.asarray(flags, bool)])
         if isinstance(frames, torch.Tensor):
-            frames_d = frames.to(self.device)
+            frames_d = to_device(frames, self.device)
             _, packed = upload(np.zeros(0, np.uint8), packed_flags, self.device)
         else:
             frames_d, packed = upload(frames, packed_flags, self.device)
@@ -423,11 +438,13 @@ class VisionPipeline:
         squares_to_check detects only those squares afresh (detect_all).
         ``state`` is not written to: the step returns a new one. Returns
         (state, StepOutputs on the device)."""
-        given = squares_to_check is not None
-        mask = positions_to_mask(squares_to_check) if given else np.zeros(64, bool)
-        frame_dev, s2c_mask, flags = self._upload(frame, mask, (given, refresh_refs))
-        return self._step_impl(state, frame_dev, s2c_mask, flags[0], flags[1],
-                               use_smoothing, use_delta)
+        with span("pipeline.step"):
+            given = squares_to_check is not None
+            mask = positions_to_mask(squares_to_check) if given else np.zeros(64, bool)
+            frame_dev, s2c_mask, flags = self._upload(frame, mask, (given, refresh_refs))
+            with span("pipeline.enqueue"):
+                return self._step_impl(state, frame_dev, s2c_mask, flags[0], flags[1],
+                                       use_smoothing, use_delta)
 
     def step_many(
         self,
@@ -481,16 +498,29 @@ def upload(frames, flags: np.ndarray, device: torch.device) -> tuple:
     leading axes), their bytes as they are, in one host buffer together
     with the bool array ``flags``; the buffer is page-locked on CUDA, so the
     copy is asynchronous. Returns device views (frames in their layout,
-    flags in their shape)."""
-    frames = np.asarray(frames, np.uint8)
-    flags = np.asarray(flags, bool)
-    n = frames.size
-    host = torch.empty(n + flags.size, dtype=torch.uint8, pin_memory=device.type == "cuda")
-    buf = host.numpy()
-    buf[:n].reshape(frames.shape)[...] = frames
-    buf[n:] = flags.reshape(-1)
-    t = host.to(device, non_blocking=True)
-    return t[:n].view(frames.shape), t[n:].bool().view(flags.shape)
+    flags in their shape). The span ``pipeline.upload``; the buffer's bytes
+    count in ``pipeline.h2d_bytes`` when it goes to a device other than the
+    CPU."""
+    with span("pipeline.upload"):
+        frames = np.asarray(frames, np.uint8)
+        flags = np.asarray(flags, bool)
+        n = frames.size
+        host = torch.empty(n + flags.size, dtype=torch.uint8, pin_memory=device.type == "cuda")
+        buf = host.numpy()
+        buf[:n].reshape(frames.shape)[...] = frames
+        buf[n:] = flags.reshape(-1)
+        if device.type != "cpu":
+            count("pipeline.h2d_bytes", host.numel())
+        t = host.to(device, non_blocking=True)
+        return t[:n].view(frames.shape), t[n:].bool().view(flags.shape)
+
+
+def to_device(frames: torch.Tensor, device) -> torch.Tensor:
+    """``frames.to(device)``; a host tensor's bytes going to the card count
+    in ``pipeline.h2d_bytes``."""
+    if frames.device.type == "cpu" and torch.device(device).type != "cpu":
+        count("pipeline.h2d_bytes", frames.numel() * frames.element_size())
+    return frames.to(device)
 
 
 def occupancy_to_set(occ) -> set:

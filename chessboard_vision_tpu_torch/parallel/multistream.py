@@ -94,6 +94,7 @@ from chessboard_vision_tpu_torch.ops.color import planar_bgr2gray
 from chessboard_vision_tpu_torch.parallel import distributed as pdist
 from chessboard_vision_tpu_torch.parallel import mesh as mesh_lib
 from chessboard_vision_tpu_torch.utils.checkpoint import tree_map
+from chessboard_vision_tpu_torch.utils.profiling import span
 
 # Per tick and stream, the uploaded flags: 64 square-mask bits, then
 # "squares_to_check given" and "refresh references".
@@ -555,7 +556,7 @@ class MultiStreamPipeline:
             dev = slot.block.device
             if on_device:
                 _, slot_flags = tp.upload(np.zeros(0, np.uint8), flags[rows], dev)
-                ups.append((frames[rows].to(dev), slot_flags))
+                ups.append((tp.to_device(frames[rows], dev), slot_flags))
             else:
                 ups.append(tp.upload(frames[rows], flags[rows], dev))
         return ups
@@ -590,8 +591,11 @@ class MultiStreamPipeline:
         bool squares to force a fresh detection on; refresh: optional (N,)
         bool forced re-reference per stream. Returns (state,
         MultiStreamOutputs on the device)."""
-        flags = self._row_flags(self._flags((), s2c_masks, refresh, np.shape(frames)[0]))
-        return self._tick_slots(state, self._uploads(frames, flags, 0))
+        with span("pipeline.step"):
+            flags = self._row_flags(self._flags((), s2c_masks, refresh, np.shape(frames)[0]))
+            inputs = self._uploads(frames, flags, 0)
+            with span("pipeline.enqueue"):
+                return self._tick_slots(state, inputs)
 
     def step_chunk(self, state, frames):
         """T ticks for all N streams from one upload a slot: frames (T, N, H,

@@ -6,7 +6,9 @@ change model and the device noise FSM); this wrapper keeps N independent
 host rule states (move inference, stability gating, per-stream callbacks)
 and feeds smart-scan masks and post-move re-references back per stream.
 Per-stream semantics match GameSession (same stability constants and
-inference); the noise FSM runs on the device (ops/fsm.py).
+inference); the noise FSM runs on the device (ops/fsm.py). Each
+``on_frames`` is one call of utils/profiling.py's call table, with the
+spans of GameSession.on_frame.
 
 ``mesh`` shards the streams (and squares) over a stream mesh
 (parallel/mesh.py), as in the JAX package; the drift rebuild and
@@ -34,6 +36,7 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
+from chessboard_vision_tpu_torch.device import synchronize
 from chessboard_vision_tpu_torch.models.pipeline import occupancy_to_set
 from chessboard_vision_tpu_torch.ops.layout import positions_to_mask
 from chessboard_vision_tpu_torch.parallel.multistream import (
@@ -51,6 +54,7 @@ from chessboard_vision_tpu_torch.utils.config import (
     load_json_config,
 )
 from chessboard_vision_tpu_torch.utils.logging import get_logger
+from chessboard_vision_tpu_torch.utils.profiling import span
 
 
 class _StreamState:
@@ -177,28 +181,34 @@ class MultiStreamSession:
         processes, of the pipeline's ``frame_rows``) -> the committed move
         (or None) of each stream of ``rows``. One upload and one readback
         (occupancy and the FSM's blocked flag)."""
-        self.frame_count += 1
-        given = range(self.n) if len(frames) == self.n else self.ms.frame_rows
-        if self.frame_count % self.FULL_SCAN_PERIOD != 0:
-            s2c = np.stack([self._smart_scan_mask(self.streams[i]) for i in given])
-        else:
-            s2c = None
-        refresh = np.array([self.streams[i].refresh_next for i in given])
-        for i in given:
-            self.streams[i].refresh_next = False
+        with span("session.on_frames"):
+            self.frame_count += 1
+            given = range(self.n) if len(frames) == self.n else self.ms.frame_rows
+            if self.frame_count % self.FULL_SCAN_PERIOD != 0:
+                with span("session.smart_scan"):
+                    s2c = np.stack([self._smart_scan_mask(self.streams[i]) for i in given])
+            else:
+                s2c = None
+            refresh = np.array([self.streams[i].refresh_next for i in given])
+            for i in given:
+                self.streams[i].refresh_next = False
 
-        if self.drift is not None and self.frame_count % self.drift_check_interval == 0:
-            self._check_drift(frames)
+            if self.drift is not None and self.frame_count % self.drift_check_interval == 0:
+                self._check_drift(frames)
 
-        self.state, out = self.ms.step(self.state, frames, s2c_masks=s2c, refresh=refresh)
-        host = torch.cat([out.step.occupancy, out.noise.blocked[:, None]], dim=1).cpu().numpy()
-        moves: List[Optional[chess.Move]] = []
-        now = time.time()
-        for j, i in enumerate(out.streams):
-            vision = occupancy_to_set(host[j, :64])
-            moves.append(self._process_stable_move(i, self.streams[i], vision,
-                                                   bool(host[j, 64]), now))
-        return moves
+            self.state, out = self.ms.step(self.state, frames, s2c_masks=s2c, refresh=refresh)
+            packed = torch.cat([out.step.occupancy, out.noise.blocked[:, None]], dim=1)
+            with span("session.device_wait"):
+                synchronize(packed.device)
+            host = packed.cpu().numpy()
+            moves: List[Optional[chess.Move]] = []
+            now = time.time()
+            with span("session.rules"):
+                for j, i in enumerate(out.streams):
+                    vision = occupancy_to_set(host[j, :64])
+                    moves.append(self._process_stable_move(i, self.streams[i], vision,
+                                                           bool(host[j, 64]), now))
+            return moves
 
     def _process_stable_move(self, idx, st: _StreamState, vision, blocked, now):
         expected = st.game.get_board_occupancy()

@@ -7,7 +7,11 @@ copy, then runs the host control plane: noise FSM, occupancy-stability gate
 (20 frames / 2 s cooldown / >4-diff reset), legal-move inference with
 ambiguity rejection, and the ``on_move_detected`` subclass hook.
 ``board_lock`` (RLock) is held across inference and push, as in the
-reference.
+reference. Each ``on_frame`` is one call of utils/profiling.py's call
+table: its span ``session.on_frame`` holds ``session.smart_scan``, the
+pipeline's spans, ``session.device_wait`` (the one wait for the card: the
+step and the packing of its outputs, before their D2H copy) and
+``session.rules``.
 
 ``save_checkpoint``/``resume_checkpoint`` snapshot the session mid-game
 in the JAX package's checkpoint format (utils/checkpoint.py), so a
@@ -49,7 +53,7 @@ from typing import Optional
 import numpy as np
 
 from chessboard_vision_tpu_torch import geometry as geo
-from chessboard_vision_tpu_torch.device import resolve_device
+from chessboard_vision_tpu_torch.device import resolve_device, synchronize
 from chessboard_vision_tpu_torch.rules import GameState, chess, classify_piece_colors
 from chessboard_vision_tpu_torch.rules.piece_types import (
     PieceTypeClassifier,
@@ -67,11 +71,13 @@ from chessboard_vision_tpu_torch.utils.config import (
 )
 from chessboard_vision_tpu_torch.utils.checkpoint import load_tree, read_meta, save_tree
 from chessboard_vision_tpu_torch.utils.logging import get_logger
-from chessboard_vision_tpu_torch.utils.profiling import FpsCounter
+from chessboard_vision_tpu_torch.utils.profiling import FpsCounter, span
 from chessboard_vision_tpu_torch.models.pipeline import (
+    StepOutputs,
     VisionPipeline,
     occupancy_to_set,
-    outputs_to_numpy,
+    pack_leaves,
+    unpack_leaves,
 )
 from chessboard_vision_tpu_torch.session.drift import DriftMonitor
 from chessboard_vision_tpu_torch.session.inference import infer_move_from_diff
@@ -234,38 +240,44 @@ class GameSession:
 
     def on_frame(self, img: np.ndarray):
         """Process one camera frame; returns the committed move or None."""
-        self.frame_count += 1
-        self.fps.update()
-        squares_to_check = None
-        if self.frame_count % self.FULL_SCAN_PERIOD != 0 and self.game is not None:
-            squares_to_check = self._smart_scan_set()
+        with span("session.on_frame"):
+            self.frame_count += 1
+            self.fps.update()
+            squares_to_check = None
+            if self.frame_count % self.FULL_SCAN_PERIOD != 0 and self.game is not None:
+                with span("session.smart_scan"):
+                    squares_to_check = self._smart_scan_set()
 
-        refresh = self._refresh_next
-        self._refresh_next = False
-        self.pipe_state, out = self.pipeline.step(
-            self.pipe_state, img, squares_to_check=squares_to_check, refresh_refs=refresh
-        )
-        out = outputs_to_numpy(out)
-        self.last_outputs = out
-        vision_occupied = occupancy_to_set(out.occupancy)
-        visual_changes = occupancy_to_set(out.visual_changes)
+            refresh = self._refresh_next
+            self._refresh_next = False
+            self.pipe_state, out = self.pipeline.step(
+                self.pipe_state, img, squares_to_check=squares_to_check, refresh_refs=refresh
+            )
+            packed = pack_leaves(out)  # queued behind the step
+            with span("session.device_wait"):
+                synchronize(packed.device)
+            out = StepOutputs(*unpack_leaves(packed.cpu().numpy(), out))
+            self.last_outputs = out
+            vision_occupied = occupancy_to_set(out.occupancy)
+            visual_changes = occupancy_to_set(out.visual_changes)
 
-        noise_state, _ = self.noise.process(visual_changes)
-        self._update_radar_ui(vision_occupied)
-        self._track_radii(vision_occupied, out)
-        move = self._process_stable_move(vision_occupied, noise_state)
+            noise_state, _ = self.noise.process(visual_changes)
+            self._update_radar_ui(vision_occupied)
+            self._track_radii(vision_occupied, out)
+            with span("session.rules"):
+                move = self._process_stable_move(vision_occupied, noise_state)
 
-        # The drift check is not gated on the noise FSM: a real bump keeps
-        # the FSM NOISE_ACTIVE (the shifted content never settles), which
-        # would block the very check that heals it; the monitor's own gates
-        # reject a hand over the board.
-        if self.drift is not None and self.frame_count % self.drift_check_interval == 0:
-            new_corners = self.drift.check(img)
-            if new_corners is not None:
-                self._recalibrate(new_corners, img)
-        if not self.headless:
-            self._draw_interface(img, noise_state)
-        return move
+            # The drift check is not gated on the noise FSM: a real bump keeps
+            # the FSM NOISE_ACTIVE (the shifted content never settles), which
+            # would block the very check that heals it; the monitor's own gates
+            # reject a hand over the board.
+            if self.drift is not None and self.frame_count % self.drift_check_interval == 0:
+                new_corners = self.drift.check(img)
+                if new_corners is not None:
+                    self._recalibrate(new_corners, img)
+            if not self.headless:
+                self._draw_interface(img, noise_state)
+            return move
 
     # -- stability + inference -------------------------------------------
 

@@ -5,16 +5,21 @@ Drives ``VisionPipeline.step`` (or, with ``--streams N``, one tick of
 benchmark's board layout (full smart-scan set, chained state) and prints,
 per step:
 
-- the host time to pack the frame(s) with the flags and start the upload
-  (as the step does it: a host HWC frame is taken planar on the card by a
-  single-stream step and kept HWC by a shared-geometry tick), and the host
-  time to enqueue the step's device work (no upload);
+- the host time of the step's spans (``utils.profiling``'s call table):
+  ``pipeline.upload`` (the frame(s) packed with the flags into a
+  page-locked buffer and the copy started: a host HWC frame is taken
+  planar on the card by a single-stream step and kept HWC by a
+  shared-geometry tick), ``pipeline.enqueue`` (the step's device work
+  enqueued) and the whole ``pipeline.step``, over steps with no profiler
+  and over the profiled steps;
 - under ``torch.profiler`` (``utils.profiling.device_trace``): the wall
   time, the device busy time and its share of the wall, the device kernels
   and copies, the host syncs (the exact backend's hysteresis readbacks);
-  then the device time per source file of the port (the innermost frame of
-  the port's package around each record's launch, as the JAX tool gives
-  each op's source file) and the top kernels with their source.
+  each span's host and self time and the device's idle time inside its
+  ranges (what the host was doing while the card waited); then the device
+  time per source file of the port (the innermost frame of the port's
+  package around each record's launch, as the JAX tool gives each op's
+  source file) and the top kernels with their source.
 
 The card's name and power limit (nvidia-smi) head the output.
 
@@ -34,12 +39,28 @@ import numpy as np
 import torch
 
 from chessboard_vision_tpu_torch.geometry import BoardGeometry
-from chessboard_vision_tpu_torch.models.pipeline import VisionPipeline, upload
+from chessboard_vision_tpu_torch.models.pipeline import VisionPipeline
 from chessboard_vision_tpu_torch.ops.canny import canny
 from chessboard_vision_tpu_torch.ops.layout import to_planar
 from chessboard_vision_tpu_torch.parallel.multistream import MultiStreamPipeline
 from chessboard_vision_tpu_torch.tools.synth import SynthCamera, bench_corners, initial_occupancy
-from chessboard_vision_tpu_torch.utils.profiling import device_op_rows, device_trace, frame_path
+from chessboard_vision_tpu_torch.utils.profiling import (
+    clear,
+    device_op_rows,
+    device_trace,
+    frame_path,
+    recorded_calls,
+    span_rows,
+)
+
+STEP_SPANS = ("pipeline.upload", "pipeline.enqueue", "pipeline.step")
+
+
+def step_span_means() -> str:
+    """The mean host ms a step of each of STEP_SPANS, over the steps the call
+    table holds."""
+    calls = [c for c in recorded_calls() if c.root == "pipeline.step"]
+    return ", ".join(f"{name} {np.mean([c.ms(name) for c in calls]):.3f}" for name in STEP_SPANS)
 
 
 def main(argv=None):
@@ -77,54 +98,34 @@ def main(argv=None):
         pipe = MultiStreamPipeline(g, k, **kw)
         frames = [np.stack([frames[(i + s) % 4] for s in range(k)]) for i in range(4)]
         masks = np.ones((k, 64), bool)
-        flags = pipe._flags((), masks)
 
         def step(state, i):
             return pipe.step(state, frames[i % 4], s2c_masks=masks)
-
-        def pack(i):
-            return upload(frames[i % 4], flags, pipe.device)
-
-        def enqueue(state, uploaded):
-            return pipe._tick(state, *uploaded)
     else:
         pipe = VisionPipeline(g, **kw)
         s2c = {(f, r) for f in range(8) for r in range(8)}
 
         def step(state, i):
             return pipe.step(state, frames[i % 4], squares_to_check=s2c)
-
-        def pack(i):
-            return pipe._upload(frames[i % 4], np.ones(64, bool), (True, False))
-
-        def enqueue(state, uploaded):
-            frame, mask, flags = uploaded
-            return pipe._step_impl(state, frame, mask, flags[0], flags[1])
     state = pipe.capture_reference(pipe.init_state(), frames[0])
     for i in range(10):  # warm up the allocator and the kernel build
         state, _ = step(state, i)
     torch.cuda.synchronize()
 
-    t0 = time.perf_counter()
+    clear()
     for i in range(n):
-        uploaded = pack(i)
+        state, _ = step(state, i)
     torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    for _ in range(n):
-        state, _ = enqueue(state, uploaded)
-    t2 = time.perf_counter()
-    torch.cuda.synchronize()
-    t3 = time.perf_counter()
     backend = pipe.pipe.hough_backend if args.streams else pipe.hough_backend
     what = (f"{w}x{h}{' enhanced' if args.enhance else ''}, {backend} Hough, "
             f"{'planar' if args.planar else 'HWC'} frames")
     if args.streams:
         what += f", {args.streams} streams a tick"
-    print(f"{what}: host pack+upload {1e3 * (t1 - t0) / n:.3f} ms, step enqueue "
-          f"{1e3 * (t2 - t1) / n:.3f} ms, enqueue+drain {1e3 * (t3 - t1) / n:.3f} ms per step")
+    print(f"{what}: host ms a step, no profiler: {step_span_means()}")
 
     syncs = canny.host_syncs
     with tempfile.TemporaryDirectory(prefix="profile_step_") as tdir:
+        clear()
         with device_trace(tdir):
             t0 = time.perf_counter()
             for i in range(n):
@@ -132,10 +133,15 @@ def main(argv=None):
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0) / n
         rows = device_op_rows(tdir)
+        spans = span_rows(tdir, per=n)
     busy_ms = sum(ms for _, _, ms in rows) / n
     print(f"profiled {n} steps: wall {wall_ms:.3f} ms/step, device busy {busy_ms:.3f} "
           f"ms/step ({100 * busy_ms / wall_ms:.1f}% of wall), {len(rows) / n:.0f} device "
-          f"kernels+copies/step, {(canny.host_syncs - syncs) / n:.1f} host syncs/step")
+          f"kernels+copies/step, {(canny.host_syncs - syncs) / n:.1f} host syncs/step; "
+          f"host ms a step: {step_span_means()}")
+    print("spans in the trace (ms/step): host, self, device idle inside")
+    for name, r in spans.items():
+        print(f"  {r.ms:8.3f}  {r.self_ms:8.3f}  {r.idle_ms:8.3f}  {name}")
     per_file, per_op, count = defaultdict(float), defaultdict(float), defaultdict(int)
     for name, frames, ms in rows:
         source = frames[0] if frames else "?"

@@ -1,16 +1,27 @@
-"""Profiling: FPS counters, per-stage latency percentiles, a device trace
-and the device time of its records by the port's module that launched them.
+"""Profiling: spans and counters of the port's calls, FPS counters, a
+device trace and the device time of its records by the port's module that
+launched them.
 
-Counterpart of chessboard_vision_tpu.utils.profiling: a windowed FPS
-counter and a StageTimer that collects per-stage wall times and reports
-p50/p95, the BASELINE per-stage latency metric. Work on the card is
-asynchronous, so a stage's time means something only when the timer waits
-for the stage's output: pass ``sync``, e.g.
-``StageTimer(sync=lambda _: torch.cuda.current_stream().synchronize())``.
-``device_trace`` is a torch.profiler scope that writes a Chrome trace with
-the Python stacks; ``device_op_rows`` reads its device records with the
-port's frames that launched each, and ``aggregate_device_op_ms`` sums them
-by stage, as the JAX function sums a TPU trace's ops by their source.
+The call table: ``span(name)`` marks a layer boundary (a session call, the
+pipeline's step, its upload and enqueue, the wait for the card, the rules)
+and ``count(name, n)`` counts work at one (the bytes a call uploads). A span
+opened with no span open on its thread opens a *call* (one frame, one
+tick), and every span and count inside it belongs to that call. Recording
+is always on: a thread gathers its open call's spans in a list, and the
+call, once its first span closes, joins a deque of the newest ``CALLS``
+calls; ``recorded_calls()`` reads them, each call as its spans' total and
+self time by name and its counters. While a torch.profiler session records,
+a span also enters ``torch.profiler.record_function``, so it lands in the
+Chrome trace as a ``user_annotation`` range on the clock of the device
+records it launched; without one it costs no profiler call.
+
+Counterpart of chessboard_vision_tpu.utils.profiling for the rest: a
+windowed FPS counter; ``device_trace`` is a torch.profiler scope that
+writes a Chrome trace with the Python stacks; ``device_op_rows`` reads its
+device records with the port's frames that launched each, and
+``aggregate_device_op_ms`` sums them by stage, as the JAX function sums a
+TPU trace's ops by their source; ``span_rows`` gives each span's host,
+self and device-idle time in such a trace.
 """
 
 from __future__ import annotations
@@ -18,13 +29,126 @@ from __future__ import annotations
 import bisect
 import json
 import os
+import threading
 import time
 import warnings
-from collections import defaultdict
+from collections import defaultdict, deque
 from contextlib import contextmanager
-from typing import Dict, List, Tuple
+from types import MappingProxyType
+from typing import Dict, List, Mapping, NamedTuple, Tuple
 
-import numpy as np
+import torch.autograd.profiler as autograd_profiler
+from torch.profiler import record_function
+
+# -- the call table -----------------------------------------------------------
+
+CALLS = 8192  # the calls the table keeps, the newest
+
+
+class _Thread(threading.local):
+    open = None  # the innermost open span on this thread
+    spans: list  # the spans of the call open on this thread, in the order opened
+    counts: dict  # its counters
+
+
+_thread = _Thread()
+_calls: deque = deque(maxlen=CALLS)  # finished calls, (spans, counts), oldest first
+
+
+class span:
+    """``with span(name):`` one span of the call open on this thread, or the
+    first of a new call when no span is open on it. The span is its own
+    entry in the call: name, parent span, start and end on
+    ``time.perf_counter_ns``. Under a recording torch.profiler session it is
+    also a ``record_function`` range."""
+
+    __slots__ = ("name", "parent", "start", "end", "_range")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        th = _thread
+        parent = self.parent = th.open
+        if parent is None:
+            th.spans, th.counts = [self], {}
+        else:
+            th.spans.append(self)
+        th.open = self
+        if autograd_profiler._is_profiler_enabled:
+            self._range = record_function(self.name)
+            self._range.__enter__()
+        else:
+            self._range = None
+        self.start = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        self.end = time.perf_counter_ns()
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        th = _thread
+        th.open = self.parent
+        if self.parent is None:
+            _calls.append((th.spans, th.counts))
+        return False
+
+
+def count(name: str, n: int):
+    """Add ``n`` to the counter ``name`` of the call open on this thread;
+    outside any call, nothing."""
+    th = _thread
+    if th.open is not None:
+        th.counts[name] = th.counts.get(name, 0) + n
+
+
+class SpanTotal(NamedTuple):
+    n: int  # spans of the name in the call
+    total_ns: int  # their durations, summed
+    self_ns: int  # the same less the durations of their child spans
+
+
+class CallRecord(NamedTuple):
+    """One call of the table: the span that opened it, and its spans and
+    counters by name (read-only mappings)."""
+
+    root: str
+    spans: Mapping[str, SpanTotal]
+    counts: Mapping[str, int]
+
+    def ms(self, name: str) -> float:
+        """The summed duration of the call's spans ``name``, ms (0 without one)."""
+        s = self.spans.get(name)
+        return 0.0 if s is None else s.total_ns / 1e6
+
+
+def recorded_calls() -> Tuple[CallRecord, ...]:
+    """The newest ``CALLS`` finished calls, oldest first."""
+    out = []
+    for spans, counts in tuple(_calls):
+        child_ns: Dict[int, int] = defaultdict(int)  # by id() of the parent span
+        for s in spans:
+            if s.parent is not None:
+                child_ns[id(s.parent)] += s.end - s.start
+        totals: Dict[str, list] = {}
+        for s in spans:
+            t = totals.setdefault(s.name, [0, 0, 0])
+            t[0] += 1
+            t[1] += s.end - s.start
+            t[2] += s.end - s.start - child_ns.get(id(s), 0)
+        out.append(CallRecord(spans[0].name,
+                              MappingProxyType({k: SpanTotal(*v) for k, v in totals.items()}),
+                              MappingProxyType(dict(counts))))
+    return tuple(out)
+
+
+def clear():
+    """Empty the table (for tests), and end any call open on this thread."""
+    _calls.clear()
+    _thread.open = None
+
+
+# -- device traces ------------------------------------------------------------
 
 
 @contextmanager
@@ -199,6 +323,65 @@ def aggregate_device_op_ms(
     }
 
 
+class SpanRow(NamedTuple):
+    n: int  # ranges of the span's name in the trace
+    ms: float  # their host time
+    self_ms: float  # less the time of the ranges nested in them
+    idle_ms: float  # the time inside them with no device record running
+
+
+def span_rows(trace_dir: str, per: int = 1) -> Dict[str, SpanRow]:
+    """Each span of the trace that ``device_trace`` wrote into
+    ``trace_dir`` (its ``user_annotation`` ranges, by name): host, self and
+    device-idle time, each divided by ``per`` (e.g. the steps in the
+    window). Idle time is the range's time in which no device record
+    (kernel, copy, memset) ran: what the host was doing while the card
+    waited. {name: SpanRow}, in order of first appearance."""
+    events = load_trace(trace_dir)
+    ranges = defaultdict(list)
+    busy = []
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        if e.get("cat") == "user_annotation":
+            ranges[(e.get("pid"), e.get("tid"))].append(e)
+        elif e.get("cat") in DEVICE_CATEGORIES:
+            busy.append((e["ts"], e["ts"] + e.get("dur", 0)))
+    merged = []  # the device's busy time, disjoint intervals in order
+    for s, e in sorted(busy):
+        if merged and s <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], e)
+        else:
+            merged.append([s, e])
+    starts = [s for s, _ in merged]
+
+    def busy_in(s: float, e: float) -> float:
+        k, total = max(0, bisect.bisect_right(starts, s) - 1), 0.0
+        while k < len(merged) and merged[k][0] < e:
+            total += max(0.0, min(e, merged[k][1]) - max(s, merged[k][0]))
+            k += 1
+        return total
+
+    rows: Dict[str, list] = {}
+    for evs in ranges.values():
+        evs.sort(key=lambda e: (e["ts"], -e.get("dur", 0)))
+        open_: list = []  # [end, entry of its name's row]
+        for e in evs:
+            s, d = e["ts"], e.get("dur", 0)
+            while open_ and open_[-1][0] <= s:
+                open_.pop()
+            row = rows.setdefault(e.get("name", "?"), [0, 0.0, 0.0, 0.0])
+            row[0] += 1
+            row[1] += d
+            row[2] += d
+            row[3] += d - busy_in(s, s + d)
+            if open_:
+                open_[-1][1][2] -= d  # the parent's self time
+            open_.append([s + d, row])
+    return {k: SpanRow(n, ms / 1e3 / per, self_ms / 1e3 / per, idle / 1e3 / per)
+            for k, (n, ms, self_ms, idle) in rows.items()}
+
+
 class FpsCounter:
     """Windowed FPS: update() per frame; .fps refreshes every ``window`` s."""
 
@@ -216,41 +399,3 @@ class FpsCounter:
             self._count = 0
             self._start = time.time()
         return self.fps
-
-
-class StageTimer:
-    """Collects wall-time samples per named stage; reports percentiles."""
-
-    def __init__(self, sync=None):
-        self._samples: Dict[str, List[float]] = defaultdict(list)
-        self._sync = sync  # called with the stage's sync_value before the clock stops
-
-    @contextmanager
-    def stage(self, name: str, sync_value=None):
-        t0 = time.perf_counter()
-        yield
-        if self._sync is not None and sync_value is not None:
-            self._sync(sync_value)
-        self._samples[name].append(time.perf_counter() - t0)
-
-    def record(self, name: str, seconds: float):
-        self._samples[name].append(seconds)
-
-    def percentile(self, name: str, q: float) -> float:
-        s = self._samples.get(name)
-        return float(np.percentile(s, q)) if s else float("nan")
-
-    def report(self) -> Dict[str, Dict[str, float]]:
-        out = {}
-        for name, s in self._samples.items():
-            arr = np.asarray(s)
-            out[name] = {
-                "n": len(s),
-                "p50_ms": float(np.percentile(arr, 50) * 1e3),
-                "p95_ms": float(np.percentile(arr, 95) * 1e3),
-                "mean_ms": float(arr.mean() * 1e3),
-            }
-        return out
-
-    def reset(self):
-        self._samples.clear()

@@ -181,8 +181,8 @@ the last line:
      skip_frames=1, the card has no cv2 to decode a file): commits e2e4 and
      e7e5, reaches the script's FEN, and its JSONL timeline and PGN equal
      the expected text; B1 launches once a processed frame, B2-B4 never.
-     ms a processed frame, session.fps and the on_frame p50/p95 of a
-     StageTimer synchronized on the card. With the moves 22 frames apart,
+     ms a processed frame, session.fps and the on_frame p50/p95 of its
+     ``session.on_frame`` spans (which end after the wait for the card). With the moves 22 frames apart,
      cooldown_seconds=2.0 (60 frames) drops e7e5 and 0.5 (15 frames)
      keeps it. With "use_enhancer": true the game commits too and all four
      kernels launch, one B3 and one B4 a CLAHE call.
@@ -353,14 +353,15 @@ from chessboard_vision_tpu_torch.utils.profiling import (
     LAUNCH_CATEGORIES,
     PAD_LAUNCHES,
     FpsCounter,
-    StageTimer,
     aggregate_device_op_ms,
     device_op_rows,
     device_trace,
     load_trace,
+    recorded_calls,
     sleep_pads,
     stage_of_frames,
 )
+from chessboard_vision_tpu_torch.utils.profiling import clear as clear_calls
 from chessboard_vision_tpu_torch.tools.synth import (
     SynthCamera,
     bench_corners,
@@ -2247,30 +2248,26 @@ def expected_timeline(lines, boards, shows, moves):
 
 def timed_session():
     """A GameSession on the card with the move cooldown off (as run_capture
-    builds one without a cooldown), a 0.25 s FPS window, and its on_frame
-    timed by a StageTimer that waits for the card; (session, timer)."""
+    builds one without a cooldown) and a 0.25 s FPS window, the call table
+    emptied: its on_frame calls are timed by their ``session.on_frame``
+    spans, which end after the wait for the card."""
     session = GameSession(device=DEVICE)
     session.MOVE_COOLDOWN = 0.0
     session.fps = FpsCounter(window=0.25)
-    timer = StageTimer(sync=lambda _: torch.cuda.synchronize())
-    on_frame = session.on_frame
-
-    def timed_on_frame(img):
-        with timer.stage("on_frame", sync_value=True):
-            return on_frame(img)
-
-    session.on_frame = timed_on_frame
-    return session, timer
+    clear_calls()
+    return session
 
 
-def timing(session, timer, wall_ms):
-    """The footage line's times: on_frame's mean, p50 and p95, the session's
-    FPS, and the whole call with the session's set-up (pipeline build,
-    reference capture)."""
-    r = timer.report()["on_frame"]
-    return (f"{r['mean_ms']:.3f} ms a processed frame (on_frame mean; p50 {r['p50_ms']:.3f}, "
-            f"p95 {r['p95_ms']:.3f} ms, StageTimer synchronized on the card), session.fps "
-            f"{session.fps.fps:.1f}, the whole call {wall_ms:.1f} ms with the set-up")
+def timing(session, wall_ms):
+    """The footage line's times: on_frame's mean, p50 and p95 (its spans in
+    the call table), the session's FPS, and the whole call with the
+    session's set-up (pipeline build, reference capture)."""
+    ms = np.array([c.ms("session.on_frame") for c in recorded_calls()
+                   if c.root == "session.on_frame"])
+    return (f"{ms.mean():.3f} ms a processed frame (on_frame mean; p50 "
+            f"{np.percentile(ms, 50):.3f}, p95 {np.percentile(ms, 95):.3f} ms, its spans, "
+            f"which wait for the card), session.fps {session.fps.fps:.1f}, the whole call "
+            f"{wall_ms:.1f} ms with the set-up")
 
 
 def footage_phase(corners, camera, smi):
@@ -2288,7 +2285,7 @@ def footage_phase(corners, camera, smi):
               "orientation_flipped": False, "display_size": [WIDTH, HEIGHT]}
 
     # The scripted game, plain, with the session's on_frame timed.
-    session, timer = timed_session()
+    session = timed_session()
     with tempfile.TemporaryDirectory() as tmp, counted(launches) as got:
         path = os.path.join(tmp, "timeline.jsonl")
         torch.cuda.synchronize()
@@ -2314,7 +2311,7 @@ def footage_phase(corners, camera, smi):
     check(got == want, f"footage: launches {got}, want {want} (B1 once a processed frame)")
     phase("footage", f"run_capture over {len(frames)} frames in memory ({n} processed): "
           f"committed {moves} on frames {commits}, FEN and JSONL timeline and "
-          f"PGN as expected; launches {got}; {timing(session, timer, wall_ms)}; on {smi}")
+          f"PGN as expected; launches {got}; {timing(session, wall_ms)}; on {smi}")
 
     # The frame-counted cooldown: e7e5 22 frames after e2e4.
     clip = (frames[:FOOTAGE_START + COOLDOWN_E2E4_FRAMES]
@@ -2343,7 +2340,7 @@ def footage_phase(corners, camera, smi):
         return clahe(*args, **kwargs)
 
     tenh.clahe = counted_clahe
-    session, timer = timed_session()
+    session = timed_session()
     try:
         with counted(launches) as got:
             t0 = time.perf_counter()
@@ -2363,7 +2360,7 @@ def footage_phase(corners, camera, smi):
           f"footage enhanced: {k} CLAHE calls for {n} frames and the reference, launches {got}, "
           f"want {want}")
     phase("footage", f"enhanced run_capture: committed {moves}; {k} CLAHE calls, each one B3 "
-          f"and one B4 launch; launches {got}; {timing(session, timer, wall_ms)}; on {smi}")
+          f"and one B4 launch; launches {got}; {timing(session, wall_ms)}; on {smi}")
 
     api_phase(corners, camera, frames, launches, smi)
     enhance_frame_phase(frames[0], launches, smi)

@@ -5,8 +5,8 @@ nor torch is needed): every public function, class, method and parameter
 of ``chessboard_vision_tpu/`` must have a counterpart of the same name in
 the port's module of the same path (a name the port's module imports from
 another module of the port counts, with that definition's parameters).
-The only exceptions are ``NOT_CARRIED`` (the TPU's form, not its function)
-and ``RENAMED`` (the port's idiom for the same thing: its counterpart, a
+The only exceptions are ``NOT_CARRIED`` (the TPU's form, not its function,
+or a class the port replaced: its methods go with it) and ``RENAMED`` (the port's idiom for the same thing: its counterpart, a
 name or an argparse option, and a reason).
 """
 
@@ -40,6 +40,9 @@ NOT_CARRIED = {
     "parallel/mesh.py::shard_pytree_leading_axis(axis)": "GSPMD axis names",
     "parallel/mesh.py::shard_pytree_stream_square(data_axis)": "GSPMD axis names",
     "parallel/mesh.py::shard_pytree_stream_square(space_axis)": "GSPMD axis names",
+    "utils/profiling.py::StageTimer": "read by nothing, and its synchronising form slowed what "
+                                      "it timed; the port times its layers with spans "
+                                      "(utils/profiling.span, recorded_calls)",
 }
 ARGPARSE = "an option of the tool's argparse main(argv)"
 RENAMED = {
@@ -127,9 +130,9 @@ def _gaps() -> list:
             continue
         for name, params in sorted(surface["defs"].items()):
             key = f"{module}::{name}"
-            if key in NOT_CARRIED:
-                continue
             head = name.split(".")[0]
+            if key in NOT_CARRIED or f"{module}::{head}" in NOT_CARRIED:
+                continue  # a class not carried takes its methods with it
             renamed = RENAMED.get(f"{module}::{head}")
             port_name = renamed[0] + name[len(head):] if renamed else name
             found, port_params = _port_lookup(module, port_name)
