@@ -4,7 +4,8 @@ Each ``<name>.cu`` in this directory exports a plain C launcher. ``load``
 compiles it with nvcc for sm_90a into ``_build/`` (git-ignored) under a
 file name keyed on a hash of the source and the flags, so an edited source
 rebuilds and an unchanged one loads in milliseconds. A failed build raises:
-there is no fallback.
+there is no fallback. ``launch_counters`` names the wrappers that count
+their launches.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import shutil
 import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, NamedTuple, Optional, Sequence
+from typing import Callable, Dict, NamedTuple, Optional, Sequence
 
 KERNEL_DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(KERNEL_DIR, "_build")
@@ -86,3 +87,17 @@ def load(name: str) -> ctypes.CDLL:
     if name not in _loaded:
         _loaded[name] = ctypes.CDLL(build(name).path)
     return _loaded[name]
+
+
+def launch_counters() -> Dict[str, Callable]:
+    """The kernel wrappers by kernel, each counting its launches in
+    ``<wrapper>.launches``."""
+    from chessboard_vision_tpu_torch.kernels import bilateral, clahe, score_matmul
+
+    return {
+        "score_matmul": score_matmul.score_matmul,
+        "bilateral": bilateral.bilateral_planar,
+        "clahe_hist": clahe.clahe_hist,
+        "clahe_hist_luts": clahe.clahe_hist_luts,
+        "clahe_apply": clahe.clahe_apply,
+    }

@@ -32,10 +32,16 @@ The step records its spans in utils/profiling.py's call table:
 ``pipeline.step`` around ``pipeline.upload`` (the packing and the copy
 started; the bytes in ``pipeline.h2d_bytes``) and ``pipeline.enqueue``
 (the device work enqueued).
+
+On the card, a conv pipeline without the enhancer replays ``step``'s
+device chain as one CUDA graph from a frame kind's third call on
+(utils/graphs.py; ``VisionPipeline.step`` says when and why).
 """
 
 from __future__ import annotations
 
+import math
+from contextlib import nullcontext
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -54,6 +60,7 @@ from chessboard_vision_tpu_torch.ops import warp as warp_ops
 from chessboard_vision_tpu_torch.ops.color import bgr2gray, planar_bgr2gray
 from chessboard_vision_tpu_torch.ops.filters import gaussian_blur_valid
 from chessboard_vision_tpu_torch.ops.layout import positions_to_mask
+from chessboard_vision_tpu_torch.utils.graphs import StepGraphs
 from chessboard_vision_tpu_torch.utils.profiling import count, span
 
 
@@ -266,6 +273,9 @@ class VisionPipeline:
                 f"BoardGeometry.from_calibration(..., blur_pad={self.change_blur // 2})"
             )
 
+        self._graphs = StepGraphs(self.device) if graphs_engage(
+            self.device, hough_backend, with_enhancer) else None
+
         # Detector threshold overrides (the calibrator tools' seam).
         ov = detector_overrides or {}
         self._det_kwargs = {}
@@ -384,17 +394,22 @@ class VisionPipeline:
         )
         return PipelineState(piece=piece_state, change=change_state), outputs
 
-    def _upload(self, frames, s2c_mask: np.ndarray, flags) -> tuple:
+    def _upload(self, frames, s2c_mask: np.ndarray, flags, out=None) -> tuple:
         """Frame(s) with the (64,) square mask and the flags -> device views
         (frames, mask, flags). Host frames go up with the flags in one
         ``upload``, and an HWC one is then taken planar, as the JAX ``step``
-        takes a host frame; a tensor keeps its layout."""
+        takes a host frame; a tensor keeps its layout. With ``out`` (a u8
+        device buffer of the frames' bytes and the flags) everything lands
+        in it: a tensor's bytes are copied to its head."""
         packed_flags = np.concatenate([s2c_mask, np.asarray(flags, bool)])
         if isinstance(frames, torch.Tensor):
-            frames_d = to_device(frames, self.device)
-            _, packed = upload(np.zeros(0, np.uint8), packed_flags, self.device)
+            n = frames.numel()
+            frames_d = to_device(frames, self.device,
+                                 None if out is None else out[:n].view(frames.shape))
+            _, packed = upload(np.zeros(0, np.uint8), packed_flags, self.device,
+                               None if out is None else out[n:])
         else:
-            frames_d, packed = upload(frames, packed_flags, self.device)
+            frames_d, packed = upload(frames, packed_flags, self.device, out)
             if is_hwc(frames_d):
                 frames_d = frames_d.movedim(-1, -3)
         return frames_d, packed[:64], packed[64:]
@@ -437,14 +452,50 @@ class VisionPipeline:
         detection instead of the 5-frame vote; ``use_delta=False`` with
         squares_to_check detects only those squares afresh (detect_all).
         ``state`` is not written to: the step returns a new one. Returns
-        (state, StepOutputs on the device)."""
+        (state, StepOutputs on the device); no later call writes a tensor
+        it returned.
+
+        On the card, a pipeline with the conv backend and no enhancer
+        replays the step's device chain as one CUDA graph
+        (utils/graphs.py): a graph for each kind of call (the frame's
+        shape, dtype, host or tensor, and the two ``use_`` flags), captured
+        on the kind's third call, after two eager calls have filled the
+        lazy caches, and replayed from then on. The square mask and both
+        flags reach the card in the uploaded buffer, so smart-scan,
+        full-scan and refresh frames replay one graph. The state's leaves
+        are copied in (one batched copy) and the new state and outputs
+        copied out (one copy); the outputs are bit-equal to the eager
+        step's. It stays eager on the CPU, on the exact backend
+        (its Canny reads a convergence flag back mid-step), with the
+        enhancer (the bilateral's first call synchronizes, the color
+        conversion uploads a scalar) and for tensor frames that are not u8.
+        ``step_many`` stays eager."""
         with span("pipeline.step"):
             given = squares_to_check is not None
             mask = positions_to_mask(squares_to_check) if given else np.zeros(64, bool)
-            frame_dev, s2c_mask, flags = self._upload(frame, mask, (given, refresh_refs))
-            with span("pipeline.enqueue"):
-                return self._step_impl(state, frame_dev, s2c_mask, flags[0], flags[1],
-                                       use_smoothing, use_delta)
+            graphs = self._graphs
+            with nullcontext() if graphs is None else graphs.lock:
+                graph = self._graph_for(frame, use_smoothing, use_delta)
+                frame_dev, s2c_mask, flags = self._upload(
+                    frame, mask, (given, refresh_refs), None if graph is None else graph.inputs)
+
+                def impl(st):
+                    return self._step_impl(st, frame_dev, s2c_mask, flags[0], flags[1],
+                                           use_smoothing, use_delta)
+
+                with span("pipeline.enqueue"):
+                    return impl(state) if graph is None else graph.run(state, impl)
+
+    def _graph_for(self, frame, use_smoothing: bool, use_delta: bool):
+        """The CUDA graph of this kind of step call, or None: run eagerly."""
+        if self._graphs is None:
+            return None
+        on_device = isinstance(frame, torch.Tensor)
+        if on_device and frame.dtype != torch.uint8:
+            return None
+        shape = tuple(frame.shape) if on_device else np.shape(frame)
+        key = (on_device, shape, str(getattr(frame, "dtype", None)), use_smoothing, use_delta)
+        return self._graphs.get(key, math.prod(shape) + 64 + 2)  # frame, mask, two flags
 
     def step_many(
         self,
@@ -487,20 +538,27 @@ class VisionPipeline:
         return warp_ops.frame_to_board(frame_dev, self.consts.dg, contract=False).cpu().numpy()
 
 
+def graphs_engage(device: torch.device, hough_backend: str, with_enhancer: bool) -> bool:
+    """Whether ``VisionPipeline.step`` replays CUDA graphs: on the card,
+    with the conv backend and without the enhancer."""
+    return device.type == "cuda" and hough_backend == "conv" and not with_enhancer
+
+
 def is_hwc(frames) -> bool:
     """Whether frames (any leading axes) are in the HWC camera layout
     (..., H, W, 3) rather than planar (..., 3, H, W)."""
     return frames.shape[-1] == 3 and frames.shape[-3] != 3
 
 
-def upload(frames, flags: np.ndarray, device: torch.device) -> tuple:
+def upload(frames, flags: np.ndarray, device: torch.device, out=None) -> tuple:
     """One H2D copy: host frames (HWC camera layout or planar u8, any
     leading axes), their bytes as they are, in one host buffer together
     with the bool array ``flags``; the buffer is page-locked on CUDA, so the
-    copy is asynchronous. Returns device views (frames in their layout,
-    flags in their shape). The span ``pipeline.upload``; the buffer's bytes
-    count in ``pipeline.h2d_bytes`` when it goes to a device other than the
-    CPU."""
+    copy is asynchronous. It lands in a new device buffer, or in ``out`` (a
+    u8 device tensor of the buffer's size). Returns views of it (frames in
+    their layout, flags in their shape). The span ``pipeline.upload``; the
+    buffer's bytes count in ``pipeline.h2d_bytes`` when it goes to a device
+    other than the CPU."""
     with span("pipeline.upload"):
         frames = np.asarray(frames, np.uint8)
         flags = np.asarray(flags, bool)
@@ -511,16 +569,17 @@ def upload(frames, flags: np.ndarray, device: torch.device) -> tuple:
         buf[n:] = flags.reshape(-1)
         if device.type != "cpu":
             count("pipeline.h2d_bytes", host.numel())
-        t = host.to(device, non_blocking=True)
-        return t[:n].view(frames.shape), t[n:].bool().view(flags.shape)
+        t = host.to(device, non_blocking=True) if out is None else out.copy_(host, non_blocking=True)
+        return t[:n].view(frames.shape), t[n:].view(torch.bool).view(flags.shape)
 
 
-def to_device(frames: torch.Tensor, device) -> torch.Tensor:
-    """``frames.to(device)``; a host tensor's bytes going to the card count
+def to_device(frames: torch.Tensor, device, out=None) -> torch.Tensor:
+    """``frames.to(device)``, or copied into ``out`` (a tensor of its shape
+    and dtype on ``device``); a host tensor's bytes going to the card count
     in ``pipeline.h2d_bytes``."""
     if frames.device.type == "cpu" and torch.device(device).type != "cpu":
         count("pipeline.h2d_bytes", frames.numel() * frames.element_size())
-    return frames.to(device)
+    return frames.to(device) if out is None else out.copy_(frames)
 
 
 def occupancy_to_set(occ) -> set:

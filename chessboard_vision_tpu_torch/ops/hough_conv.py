@@ -260,11 +260,12 @@ class EdgePlanes(NamedTuple):
     #   (2*Hq*Wq columns, zeros after them), the score matmul's right operand
 
 
-@functools.lru_cache(maxsize=32)
+@functools.lru_cache(maxsize=None)
 def _zero_tail(n: int, width: int, device: torch.device) -> torch.Tensor:
     """A (n, width) bf16 zero block, made once per shape and device and only
     ever read: joined in edge_planes' one cat, the planes' zero tail costs
-    no device op a step."""
+    no device op a step. Never evicted: a CUDA graph of the step
+    (utils/graphs.py) reads the block at the address it captured."""
     return torch.zeros((n, width), dtype=torch.bfloat16, device=device)
 
 

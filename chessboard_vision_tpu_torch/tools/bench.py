@@ -302,11 +302,15 @@ class Bench:
 
     def stages(self, pipe, state, key, label):
         """The per-stage table of STAGE_STEPS chained steps on the
-        device-resident frame, into ``extras[key]``."""
+        device-resident frame, into ``extras[key]``: one-frame
+        ``step_many`` calls, which run eagerly, so each record keeps the
+        frames that launched it (a graphed ``step``'s all come from its
+        replay)."""
         state_box = [state]
+        chunk = self.frame_dev[None]
 
         def step():
-            state_box[0], _ = pipe.step(state_box[0], self.frame_dev)
+            state_box[0], _ = pipe.step_many(state_box[0], chunk)
 
         with ExitStack() as stack:
             if self.args.trace:

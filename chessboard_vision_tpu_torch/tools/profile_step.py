@@ -11,7 +11,10 @@ per step:
   planar on the card by a single-stream step and kept HWC by a
   shared-geometry tick), ``pipeline.enqueue`` (the step's device work
   enqueued) and the whole ``pipeline.step``, over steps with no profiler
-  and over the profiled steps;
+  and over the profiled steps, with the CUDA graph captures and replays
+  of those steps (the counters ``pipeline.graph_captures`` and
+  ``pipeline.graph_replays``: a single-stream conv step without the
+  enhancer replays one graph from its third call, models/pipeline.py);
 - under ``torch.profiler`` (``utils.profiling.device_trace``): the wall
   time, the device busy time and its share of the wall, the device kernels
   and copies, the host syncs (the exact backend's hysteresis readbacks);
@@ -19,7 +22,8 @@ per step:
   ranges (what the host was doing while the card waited); then the device
   time per source file of the port (the innermost frame of the port's
   package around each record's launch, as the JAX tool gives each op's
-  source file) and the top kernels with their source.
+  source file) and the top kernels with their source. A replayed graph's
+  records all come from its one launch, in utils/graphs.py.
 
 The card's name and power limit (nvidia-smi) head the output.
 
@@ -54,13 +58,16 @@ from chessboard_vision_tpu_torch.utils.profiling import (
 )
 
 STEP_SPANS = ("pipeline.upload", "pipeline.enqueue", "pipeline.step")
+GRAPH_COUNTERS = ("pipeline.graph_captures", "pipeline.graph_replays")
 
 
 def step_span_means() -> str:
     """The mean host ms a step of each of STEP_SPANS, over the steps the call
-    table holds."""
+    table holds, and the sum of each of GRAPH_COUNTERS over them."""
     calls = [c for c in recorded_calls() if c.root == "pipeline.step"]
-    return ", ".join(f"{name} {np.mean([c.ms(name) for c in calls]):.3f}" for name in STEP_SPANS)
+    return ", ".join([f"{name} {np.mean([c.ms(name) for c in calls]):.3f}" for name in STEP_SPANS]
+                     + [f"{name} {sum(c.counts.get(name, 0) for c in calls)}"
+                        for name in GRAPH_COUNTERS])
 
 
 def main(argv=None):

@@ -29,11 +29,13 @@ def tree_leaves(tree: Any) -> List[Any]:
     return [tree]
 
 
-def _fill(template: Any, leaves: Iterator[Any]) -> Any:
+def tree_fill(template: Any, leaves: Iterator[Any]) -> Any:
+    """The tree of ``template`` with the next of ``leaves`` for each of its
+    leaves."""
     if template is None:
         return None
     if isinstance(template, tuple):
-        children = [_fill(node, leaves) for node in template]
+        children = [tree_fill(node, leaves) for node in template]
         return type(template)(*children) if hasattr(template, "_fields") else tuple(children)
     return next(leaves)
 
@@ -42,7 +44,7 @@ def tree_map(fn, tree: Any, *rest: Any) -> Any:
     """``fn`` over the leaves of trees of one structure, taken in turn; the
     result has ``tree``'s structure."""
     leaves = [fn(*xs) for xs in zip(tree_leaves(tree), *map(tree_leaves, rest))]
-    return _fill(tree, iter(leaves))
+    return tree_fill(tree, iter(leaves))
 
 
 def _host_dtype(leaf) -> np.dtype:
@@ -104,4 +106,4 @@ def load_tree(path: str, template: Any, device="cuda") -> Tuple[Any, dict]:
                         f"{want_shape}: was the pipeline built with a different geometry?"
                     )
             leaves.append(torch.as_tensor(np.ascontiguousarray(arr, dtype=want), device=device))
-    return _fill(template, iter(leaves)), meta
+    return tree_fill(template, iter(leaves)), meta

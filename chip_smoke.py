@@ -315,7 +315,7 @@ import torch
 from torch.utils._pytree import tree_leaves
 
 from chessboard_vision_tpu_torch.kernels import bilateral as kb
-from chessboard_vision_tpu_torch.kernels import SOURCES, build_all
+from chessboard_vision_tpu_torch.kernels import SOURCES, build_all, launch_counters
 from chessboard_vision_tpu_torch.kernels import clahe as kc
 from chessboard_vision_tpu_torch.kernels import score_matmul as sm
 from chessboard_vision_tpu_torch.models import pipeline as tp
@@ -1148,10 +1148,13 @@ def stages_phase(pipe, frame, camera, g, smi):
     frames = [camera.render(initial_occupancy(), rng) for _ in range(4)]
 
     def stepper(p):
+        # One-frame step_many calls run eagerly, so each record keeps the
+        # frames that launched it (a graphed step's all come from its replay).
         state, i = [p.capture_reference(p.init_state(), frames[0])], itertools.count()
 
         def step():
-            state[0], _ = p.step(state[0], frames[next(i) % 4], squares_to_check=ALL_SQUARES)
+            state[0], _ = p.step_many(state[0], frames[next(i) % 4][None],
+                                      squares_to_check=ALL_SQUARES)
         return step
 
     ms8 = tms.MultiStreamPipeline(g, 8, device=DEVICE)
@@ -1426,13 +1429,7 @@ def session_phase(corners, camera, rng, label, use_enhancer, hough_backend="auto
     phase(label, f"session committed {committed} in {n_frames} frames; FEN {script.fen()}")
 
 
-COUNTERS = {
-    "score_matmul": sm.score_matmul,
-    "bilateral": kb.bilateral_planar,
-    "clahe_hist": kc.clahe_hist,
-    "clahe_hist_luts": kc.clahe_hist_luts,
-    "clahe_apply": kc.clahe_apply,
-}
+COUNTERS = launch_counters()
 # The path's wrapper of each kernel of the JSON record, where the names
 # differ: the path reaches B3's kernel through clahe_hist_luts.
 PATH_WRAPPER = {"clahe_hist": "clahe_hist_luts"}
@@ -3072,7 +3069,9 @@ def ui_renders(camera, occ, seed, n=UI_RENDERS, **kw):
 def b1_operands(pipe, frames, label):
     """B1's operands as steps of ``pipe`` hand them over (captured on the
     way in): the plan's basis and the pooled planes of every frame, one
-    step a frame, stacked (N = 64 a frame)."""
+    step a frame, stacked (N = 64 a frame). The steps are one-frame
+    ``step_many`` calls, which run eagerly: a graphed ``step`` replays B1
+    without calling its wrapper."""
     from chessboard_vision_tpu_torch.ops import hough_conv
 
     seen = []
@@ -3080,7 +3079,7 @@ def b1_operands(pipe, frames, label):
     hough_conv.score_matmul = lambda a, b: seen.append((a, b)) or real(a, b)
     try:
         for frame in frames:
-            pipe.step(pipe.init_state(), frame)
+            pipe.step_many(pipe.init_state(), frame[None])
     finally:
         hough_conv.score_matmul = real
     check(len(seen) == len(frames), f"{label}: {len(seen)} B1 calls in {len(frames)} steps")
