@@ -8,6 +8,17 @@ rigs' corners, and takes nothing the program made. With ``control`` it runs
 the lower-precision control instead: the reference with the resample in
 bfloat16, put in the program's place.
 
+Both halves of the reference are found by name. The configuration's
+``"reference"`` names the vision step, ``benchmark/reference/<module>.py``
+(``pipeline`` where it names none), which exports ``IMPLEMENTS``, the
+``pipeline`` settings it replays, and ``build(config, geometries, device,
+resample_dtype)``: an object with ``n``, ``device``, ``init_state()``,
+``capture(state, frames)`` and ``step(state, frames, s2c, given, refresh)``
+-> (state, StepOutputs). The driver's ``REFERENCE`` names the session rules
+over it, ``"<module>.<Class>"`` or a bare class of reference/sessions.py.
+A configuration whose ``pipeline`` its reference does not implement is
+refused (``unimplemented``) before a run sets anything up.
+
 The numbers compared, each against a limit of the configuration's
 ``limits``:
 
@@ -25,6 +36,9 @@ The numbers compared, each against a limit of the configuration's
 
 from __future__ import annotations
 
+import importlib.util
+import json
+import os
 from typing import List, NamedTuple, Optional
 
 import numpy as np
@@ -33,6 +47,7 @@ DISCRETE = ("occupancy", "raw_occupancy", "visual_changes", "method", "radius", 
 FLOATS = ("confidence", "change_pct", "change_z_peak", "center_mean", "corner_mean",
           "profile_extent")
 NAN_GAP = 1e9  # the gap where one side is NaN and the other is not
+PIPELINE, RULES = "pipeline", "sessions"  # the reference modules where none is named
 
 
 class Answers(NamedTuple):
@@ -82,29 +97,56 @@ def compare(program: Answers, ref: Answers, limits: dict) -> dict:
     return {k: {"value": v, "limit": float(limits[k])} for k, v in out.items()}
 
 
-def replay(config: dict, reference: str, corners: list, bank: list, frames, calls: list,
-           device, control: bool = False) -> Answers:
-    """The answers of ``reference`` (a session of reference/sessions.py, as
-    the driver names it) to ``calls`` (run.Call records), on ``device``."""
+def load_reference(root: str, name: str):
+    """``<root>/benchmark/reference/<name>.py`` as the module
+    ``benchmark.reference.<name>``, so that its relative imports reach the
+    frozen modules beside it; the imported module where that is the file
+    the import system finds."""
+    full = "benchmark.reference." + name
+    path = os.path.join(root, "benchmark", "reference", name + ".py")
+    found = importlib.util.find_spec(full)
+    if found is not None and os.path.samefile(found.origin, path):
+        return importlib.import_module(full)
+    spec = importlib.util.spec_from_file_location(full, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def unimplemented(config: dict, root: str) -> List[str]:
+    """Each setting of the configuration's ``pipeline`` that its reference's
+    ``IMPLEMENTS`` does not hold, as a line that names it; [] where none."""
+    name = config.get("reference", PIPELINE)
+    implements = load_reference(root, name).IMPLEMENTS
+    return [f"{key} {json.dumps(value)}: reference {name} does not implement it"
+            for key, value in config["pipeline"].items()
+            if key not in implements or implements[key] != value]
+
+
+def replay(config: dict, root: str, rules: str, corners: list, bank: list, frames,
+           calls: list, device, control: bool = False) -> Answers:
+    """The answers of the session rules ``rules`` (the driver's
+    ``REFERENCE``) over the configuration's reference pipeline, both from
+    ``<root>/benchmark/reference/``, to ``calls`` (run.Call records), on
+    ``device``."""
     import torch
 
     from benchmark.reference.geometry import BoardGeometry
-    from benchmark.reference.pipeline import ReferencePipeline
-    from benchmark.reference import sessions
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     h, w = config["frame_size"]
     geometries = [BoardGeometry.from_calibration(c, display_size=(w, h)) for c in corners]
-    pipe = ReferencePipeline(geometries, device,
-                             resample_dtype=torch.bfloat16 if control else torch.float32)
+    pipe = load_reference(root, config.get("reference", PIPELINE)).build(
+        config, geometries, device, torch.bfloat16 if control else torch.float32)
+    module, _, cls = rules.rpartition(".")
+    session = getattr(load_reference(root, module or RULES), cls)(pipe)
     # The bank on the device once: a call's frames are then gathered there.
     dev_bank = [torch.from_numpy(b).to(device) for b in bank]
 
     def frames_at(c: int) -> torch.Tensor:
         return torch.stack([dev_bank[b][s, r] for b, (s, r) in enumerate(frames.index(c))])
 
-    session = getattr(sessions, reference)(pipe)
     session.capture(frames_at(0))
     outputs, blocked = [], []
     for call in calls:

@@ -12,6 +12,9 @@ the calibration corners the benchmark made.
 
 ``resample_dtype`` below float32 is the benchmark's lower-precision control:
 the frame-to-square resample's taps and lerps in that dtype.
+
+The reference of a configuration that names none (compare.py): it replays
+the ``pipeline`` settings of ``IMPLEMENTS`` and no others.
 """
 
 from __future__ import annotations
@@ -30,6 +33,9 @@ from .color import planar_bgr2gray
 from .filters import gaussian_blur_valid
 from .geometry import BoardGeometry
 from .warp import DeviceGeometry
+
+
+IMPLEMENTS = {"hough_backend": "conv", "use_enhancer": False}
 
 
 class StepOutputs(NamedTuple):
@@ -156,3 +162,7 @@ class ReferencePipeline:
         )
         return PipelineState(piece=piece_state, change=change_state), out
 
+
+def build(config: dict, geometries: Sequence[BoardGeometry], device,
+          resample_dtype: torch.dtype) -> ReferencePipeline:
+    return ReferencePipeline(geometries, device, resample_dtype=resample_dtype)

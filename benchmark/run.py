@@ -6,9 +6,13 @@ from the root of a checkout. A cell of ``BENCHMARK.json`` names a
 configuration (``benchmark/configs/<config>.json``: the deployment, its rigs,
 the session it drives and the limits of its comparison) and a traffic mix
 (``benchmark/traffic/<mix>.json``, read by schedule.py). The configuration's
-``session`` names its driver (``benchmark/drivers/<session>.py``), and every
-metric is read by its own file (``benchmark/metrics/<metric>.py``), so a
-configuration, a mix or a metric is added by adding files.
+``session`` names its driver (``benchmark/drivers/<session>.py``), its
+``reference`` the plain reference of its vision step
+(``benchmark/reference/<reference>.py``, compare.py), and every metric is
+read by its own file (``benchmark/metrics/<metric>.py``), so a
+configuration, its reference, a mix or a metric is added by adding files.
+A configuration whose ``pipeline`` settings its reference does not
+implement is refused before anything is set up: exit 1, no result.
 
 A run: the rigs' corners and every board's game from the seed; the frame
 bank rendered on the card (render.py) and copied to host memory once, as
@@ -77,7 +81,10 @@ def _reports(metric: dict, cell: str) -> bool:
 
 def find_cell(root: str, workload: str) -> Cell:
     """The cell ``workload`` of ``<root>/BENCHMARK.json``, with its
-    configuration and traffic mix read from their files."""
+    configuration and traffic mix read from their files; SystemExit where
+    the configuration's reference does not implement its pipeline."""
+    from benchmark import compare
+
     with open(os.path.join(root, "BENCHMARK.json")) as fh:
         manifest = json.load(fh)
     cells = {w["name"]: w for w in manifest["workloads"]}
@@ -87,6 +94,9 @@ def find_cell(root: str, workload: str) -> Cell:
     configs = {c["name"]: c for c in manifest["configs"]}
     with open(os.path.join(root, configs[w["config"]]["file"])) as fh:
         config = json.load(fh)
+    refused = compare.unimplemented(config, root)
+    if refused:
+        raise SystemExit(f"{workload}: " + "; ".join(refused))
     with open(os.path.join(root, "benchmark", "traffic", w["traffic"] + ".json")) as fh:
         traffic = json.load(fh)
     return Cell(root, workload, config, traffic, int(w["chips"]),
@@ -198,6 +208,7 @@ class Record(NamedTuple):
     step_s: np.ndarray  # the host time of each timed call inside the pipeline's step
     stretches: list  # trace.Stretch of the traced run: [plain, with stacks]
     b1_shape: tuple  # (M, N, K) of the configuration's Hough score matmul
+    config: dict  # the cell's configuration
 
 
 class Call(NamedTuple):
@@ -329,26 +340,27 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device="cuda",
         commits=compare.commits_of([x.moves for x in calls], drv.boards),
         fens=drv.final_fens(),
     )
-    boards, reference = drv.boards, driver_mod.REFERENCE
+    boards, rules = drv.boards, driver_mod.REFERENCE
     drv.close()
     del drv, driver_mod
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
     t_ref = time.perf_counter()
-    ref = compare.replay(config, reference, corners, bank, frames, calls, device)
+    ref = compare.replay(config, cell.root, rules, corners, bank, frames, calls, device)
     checks = compare.compare(program, ref, config["limits"])
     ref_s = time.perf_counter() - t_ref
     control_checks = None
     if control:
-        low = compare.replay(config, reference, corners, bank, frames, calls, device, control=True)
+        low = compare.replay(config, cell.root, rules, corners, bank, frames, calls, device,
+                             control=True)
         control_checks = compare.compare(low, ref, config["limits"])
 
     record = Record(
         window_s=window_s, setup_s=setup_s,
         latency_s=np.asarray(lat, np.float64), frames_done=frames_done,
         wait_s=np.asarray(waits), call_s=np.asarray(walls), step_s=np.asarray(steps),
-        stretches=stretches, b1_shape=b1_shape(config["frame_size"], boards),
+        stretches=stretches, b1_shape=b1_shape(config["frame_size"], boards), config=config,
     )
     metrics = {}
     for m in (cell.per_layer if trace else cell.end_to_end):

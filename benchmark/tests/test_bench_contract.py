@@ -100,7 +100,8 @@ def test_a_module_loaded_after_the_window_withholds_the_result(tmp_path, loads_j
     (stub / "__init__.py").write_text("")
     bench = tmp_path / "checkout" / "benchmark"
     (bench / "metrics").mkdir(parents=True)
-    (bench / "drivers").symlink_to(os.path.join(tiny.ROOT, "benchmark", "drivers"))
+    for kind in ("drivers", "reference"):
+        (bench / kind).symlink_to(os.path.join(tiny.ROOT, "benchmark", kind))
     (bench / "metrics" / "late.py").write_text(
         ("import jax\n" if loads_jax else "") + "def read(run):\n    return 1.0\n")
     code = LATE_IMPORT.format(root=tiny.ROOT, tmp=str(tmp_path / "checkout"))

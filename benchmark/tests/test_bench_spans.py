@@ -29,7 +29,7 @@ def record(call_s, stretches=()) -> run.Record:
     return run.Record(window_s=1.0, setup_s=0.0, latency_s=np.zeros(0), frames_done=0,
                       wait_s=np.zeros(0), call_s=np.asarray(call_s, np.float64),
                       step_s=np.zeros(len(call_s)), stretches=list(stretches),
-                      b1_shape=(1, 1, 1))
+                      b1_shape=(1, 1, 1), config={})
 
 
 @pytest.fixture(autouse=True)

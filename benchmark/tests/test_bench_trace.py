@@ -1,6 +1,7 @@
 """The trace arithmetic on a synthetic trace: the window, the device's busy
 time and idle share, launches against records, stages by launching frame,
-the score matmul's time, and the idle gaps by what the host was doing."""
+the score matmul's time and each kernel call site's, and the idle gaps by
+what the host was doing."""
 
 import json
 
@@ -67,6 +68,7 @@ def test_stretch_with_stacks(tmp_path):
     assert s.stage_s == pytest.approx({"hough": 300e-6, "warp_extract": 300e-6,
                                        "upload": 100e-6, "other": 100e-6})
     assert s.b1_s == pytest.approx(200e-6)
+    assert s.site_s == {tr.B1_SITE: s.b1_s}
     assert dict(s.idle_gaps) == pytest.approx({
         "idle": 2100e-6, "chessboard_vision_tpu_torch/ops/canny.py: canny": 150e-6})
     assert 100 * (1 - s.busy_s / s.window_s) == pytest.approx(75.0)
@@ -75,7 +77,41 @@ def test_stretch_with_stacks(tmp_path):
 def test_stretch_without_stacks(tmp_path):
     s = tr.read(write(tmp_path, events(with_stack=False)))
     assert s.busy_s == pytest.approx(750e-6) and s.launches == 5
-    assert s.stage_s == {} and s.b1_s == 0.0 and s.idle_gaps == []
+    assert s.stage_s == {} and s.b1_s == 0.0 and s.idle_gaps == [] and s.site_s == {}
+
+
+def enhancer_events():
+    """The synthetic trace with the enhancer's kernels launched in the second
+    call: the bilateral (80 us) and the two CLAHE kernels (30 + 20 us), each
+    under its kernels/ file, and a launch under a file of kernels/_build/
+    that is no call site."""
+    return events() + [
+        x("cuda_runtime", "cudaLaunchKernel", 3400, 5, correlation=11),
+        x("cuda_runtime", "cudaLaunchKernel", 3450, 5, correlation=12),
+        x("cuda_runtime", "cudaLaunchKernel", 3460, 5, correlation=13),
+        x("cuda_runtime", "cudaLaunchKernel", 3500, 5, correlation=14),
+        x("kernel", "bilateral_planar_kernel", 3810, 80, correlation=11),
+        x("kernel", "clahe_hist_tile_kernel", 3900, 30, correlation=12),
+        x("kernel", "clahe_apply_kernel", 3930, 20, correlation=13),
+        x("kernel", "stray", 3950, 10, correlation=14),
+        py("models/enhancer.py(60): enhance", 3380, 100),
+        py("kernels/bilateral.py(150): bilateral_planar", 3390, 20),
+        py("ops/enhance.py(90): clahe", 3440, 30),
+        py("kernels/clahe.py(200): clahe_hist_luts", 3445, 10),
+        py("kernels/clahe.py(260): clahe_apply", 3458, 10),
+        py("kernels/_build/gen.py(1): stray", 3495, 10),
+    ]
+
+
+def test_device_time_by_kernel_call_site(tmp_path):
+    """Each record goes to every kernels/<file>.py around its launch, as the
+    score matmul's always went to its file; b1_s is that file's share."""
+    s = tr.read(write(tmp_path, enhancer_events()))
+    assert s.site_s == pytest.approx({"kernels/score_matmul.py": 200e-6,
+                                      "kernels/bilateral.py": 80e-6,
+                                      "kernels/clahe.py": 50e-6})
+    assert s.b1_s == s.site_s[tr.B1_SITE]
+    assert s.stage_s["enhance"] == pytest.approx(130e-6)
 
 
 def test_a_lost_record_shows(tmp_path):

@@ -55,6 +55,7 @@ STAGE_OF = {
     "kernels/clahe.py": "enhance",
     "models/pipeline.py": "upload",
 }
+KERNEL_SITES = "kernels/"  # the port's hand-written kernels, a call site a file
 B1_SITE = "kernels/score_matmul.py"  # the port's score-matmul call site, whatever runs under it
 
 
@@ -128,6 +129,12 @@ def port_path(frame: str) -> str:
     return frame[cut + len(PACKAGE):].rsplit("(", 1)[0] if cut >= 0 else ""
 
 
+def kernel_sites(frames: Tuple[str, ...]) -> set:
+    """The port's kernel call sites (``kernels/<file>.py``) among the frames."""
+    paths = {port_path(f) for f in frames}
+    return {p for p in paths if p.startswith(KERNEL_SITES) and "/" not in p[len(KERNEL_SITES):]}
+
+
 def stage_of_frames(frames: Tuple[str, ...]) -> str:
     """The stage of the innermost port frame whose file has one; "other"."""
     for f in frames:
@@ -158,8 +165,9 @@ class Stretch(NamedTuple):
     records: int  # device records of those launches that the trace kept
     device_ops: List[Tuple[str, float]]  # seconds by record name, largest first
     stage_s: Dict[str, float]  # seconds by stage (with stacks; else {})
-    b1_s: float  # seconds of records launched under the score-matmul call site
+    b1_s: float  # seconds of records launched under the score-matmul call site: site_s[B1_SITE]
     idle_gaps: List[Tuple[str, float]]  # idle seconds by what the host did (with stacks)
+    site_s: Dict[str, float]  # seconds of records launched under each kernel call site (stacks)
 
 
 def _union(intervals: List[Tuple[float, float]]) -> float:
@@ -200,7 +208,8 @@ def read(path: str) -> Stretch:
                 n_launch += 1
     stacks = PythonStacks(events)
     with_stack = bool(stacks._threads)
-    recs, ops, stages, b1, kept = [], defaultdict(float), defaultdict(float), 0.0, 0
+    recs, kept = [], 0
+    ops, stages, sites = defaultdict(float), defaultdict(float), defaultdict(float)
     for e in events:
         if e.get("ph") != "X" or e.get("cat") not in DEVICE_CATEGORIES:
             continue
@@ -214,8 +223,8 @@ def read(path: str) -> Stretch:
         if with_stack:
             frames = stacks.frames(call.get("pid"), call.get("tid"), call["ts"])
             stages[stage_of_frames(frames)] += d / 1e6
-            if any(port_path(f).endswith(B1_SITE) for f in frames):
-                b1 += d / 1e6
+            for site in kernel_sites(frames):
+                sites[site] += d / 1e6
     clipped = [(max(s, t0), min(e, t1)) for s, e in recs if e > t0 and s < t1]
     gaps = defaultdict(float)
     if with_stack:
@@ -230,5 +239,6 @@ def read(path: str) -> Stretch:
         launches=n_launch, records=kept,
         device_ops=sorted(ops.items(), key=lambda kv: -kv[1]),
         stage_s=dict(sorted(stages.items(), key=lambda kv: -kv[1])),
-        b1_s=b1, idle_gaps=sorted(gaps.items(), key=lambda kv: -kv[1]),
+        b1_s=sites.get(B1_SITE, 0.0), idle_gaps=sorted(gaps.items(), key=lambda kv: -kv[1]),
+        site_s=dict(sites),
     )
