@@ -31,7 +31,9 @@ reads a convergence flag back once a block of dilations (ops/canny.py).
 The step records its spans in utils/profiling.py's call table:
 ``pipeline.step`` around ``pipeline.upload`` (the packing and the copy
 started; the bytes in ``pipeline.h2d_bytes``) and ``pipeline.enqueue``
-(the device work enqueued).
+(the device work enqueued); with the enhancer, ``pipeline.enhance`` inside
+the enqueue (the color warp and the enhancement; B2-B4's launches in
+``pipeline.enhance_launches``).
 
 On the card, a conv pipeline without the enhancer replays ``step``'s
 device chain as one CUDA graph from a frame kind's third call on
@@ -41,7 +43,7 @@ device chain as one CUDA graph from a frame kind's third call on
 from __future__ import annotations
 
 import math
-from contextlib import nullcontext
+from contextlib import contextmanager, nullcontext
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -49,6 +51,8 @@ import torch
 
 from chessboard_vision_tpu_torch.device import resolve_device
 from chessboard_vision_tpu_torch.geometry import BoardGeometry
+from chessboard_vision_tpu_torch.kernels import bilateral as kb
+from chessboard_vision_tpu_torch.kernels import clahe as kc
 from chessboard_vision_tpu_torch.models import piece_detector as pd_model
 from chessboard_vision_tpu_torch.models.enhancer import enhance_planar
 from chessboard_vision_tpu_torch.ops import change as change_ops
@@ -294,17 +298,19 @@ class VisionPipeline:
         cascade, 64 a frame in stream-major order, and the change model's
         own-blur squares (None when the change model shares the 5x5 blur).
         Planar frames take the matmul resample, HWC frames the gather warp."""
-        if is_hwc(frames):
+        if self.with_enhancer:
+            with enhance_span():
+                if is_hwc(frames):
+                    boards = warp_ops.frame_to_board(frames, self.consts.dg).movedim(-1, -3)
+                else:
+                    boards = mr.warp_board_color(frames, self._tile_plan, self._tile_dims,
+                                                 self._tile_index)
+                gray_padded = self._enhanced_squares(boards)
+        elif is_hwc(frames):
             board = warp_ops.frame_to_board(frames, self.consts.dg)  # (..., B, B, 3)
-            if self.with_enhancer:
-                gray_padded = self._enhanced_squares(board.movedim(-1, -3))
-            else:
-                # Gray first, then the square gather: the same pixels as
-                # bgr2gray(extract_squares(board)), from one channel.
-                gray_padded = warp_ops.extract_gray_squares(bgr2gray(board), self.consts.dg)
-        elif self.with_enhancer:
-            gray_padded = self._enhanced_squares(
-                mr.warp_board_color(frames, self._tile_plan, self._tile_dims, self._tile_index))
+            # Gray first, then the square gather: the same pixels as
+            # bgr2gray(extract_squares(board)), from one channel.
+            gray_padded = warp_ops.extract_gray_squares(bgr2gray(board), self.consts.dg)
         else:
             gray_padded = mr.resample_gray_u8(planar_bgr2gray(frames), self._mm_plan, self._mm_dims)
         return self.blur(gray_padded.reshape((-1,) + tuple(gray_padded.shape[-2:])))
@@ -536,6 +542,25 @@ class VisionPipeline:
         op, as the JAX ``warp_board``, which runs outside jit."""
         frame_dev = torch.as_tensor(np.asarray(frame, np.uint8), device=self.device)
         return warp_ops.frame_to_board(frame_dev, self.consts.dg, contract=False).cpu().numpy()
+
+
+def _enhance_launches() -> int:
+    """B2-B4's launches so far: the bilateral, CLAHE's histograms with their
+    LUTs, CLAHE's apply (the kernel wrappers' own counters)."""
+    return kb.bilateral_planar.launches + kc.clahe_hist_luts.launches + kc.clahe_apply.launches
+
+
+@contextmanager
+def enhance_span():
+    """The span ``pipeline.enhance`` around one call's color warp and
+    enhancement of all its boards, and the counter
+    ``pipeline.enhance_launches``: B2-B4's launches inside it (3 for a batch
+    of boards on the card, one each; 0 on the CPU, where their plain
+    versions run)."""
+    before = _enhance_launches()
+    with span("pipeline.enhance"):
+        yield
+        count("pipeline.enhance_launches", _enhance_launches() - before)
 
 
 def graphs_engage(device: torch.device, hough_backend: str, with_enhancer: bool) -> bool:

@@ -155,8 +155,10 @@ def fast_cbrt(t: torch.Tensor, contract: bool = False) -> torch.Tensor:
     each step's ``4/3 - (t/3)*y^3`` once, as XLA:CPU's fused multiply-add
     does in the jitted JAX function."""
     t = t.float().clamp(min=1e-20)
-    y = (torch.tensor(0x548C2B4B, dtype=torch.int32, device=t.device)
-         - torch.div(t.view(torch.int32), 3, rounding_mode="trunc")).view(torch.float32)
+    # The seed's constant as a Python int (int32 arithmetic): a tensor made
+    # of it on a card would be a blocking copy, which waits for the card.
+    y = (0x548C2B4B - torch.div(t.view(torch.int32), 3, rounding_mode="trunc")).view(
+        torch.float32)
     third, four_thirds = _f32(1.0 / 3.0), _f32(4.0 / 3.0)
     tt = t * third
     for _ in range(4):

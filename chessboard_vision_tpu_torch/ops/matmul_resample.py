@@ -158,8 +158,13 @@ def resample(gray: torch.Tensor, plan: MatmulResamplePlan, dims: MatmulResampleD
     src = gray.reshape(*gray.shape[:-2], -1).float()
     idx = plan.src_index
     w = dims.src_w
-    t00, t01 = src[..., idx], src[..., idx + 1]
-    t10, t11 = src[..., idx + w], src[..., idx + w + 1]
+    return _interpolate(src[..., idx], src[..., idx + 1], src[..., idx + w],
+                        src[..., idx + w + 1], plan)
+
+
+def _interpolate(t00, t01, t10, t11, plan: MatmulResamplePlan) -> torch.Tensor:
+    """The bilinear sample of the four taps with the plan's weights; 0 where
+    the plan's anchor leaves the source."""
     fx, fy = plan.fx, plan.fy
     ox, oy = plan.ux_off == 0, plan.uy_off == 0
     top = _lerp(t00, t01, 1.0 - fx, fx, ox)
@@ -189,6 +194,34 @@ def board_tile_index(starts, tile: int, board_size: int) -> np.ndarray:
     local = pos - np.asarray(starts)[block]  # row (or col) inside its tile
     t = block[:, None] * 8 + block[None, :]
     return (t * tile + local[:, None]) * tile + local[None, :]
+
+
+def stack_plans(plans) -> MatmulResamplePlan:
+    """Plans of one shape (rigs of one grid structure and capture size, each
+    its own corners) -> one plan with a board axis: every field (n, 1, ...),
+    so that it broadcasts over a frame's channels (``warp_boards_color``)."""
+    return MatmulResamplePlan(*(torch.stack(field)[:, None] for field in zip(*plans)))
+
+
+def warp_boards_color(planar_frames: torch.Tensor, plan: MatmulResamplePlan,
+                      dims: MatmulResampleDims, index: torch.Tensor) -> torch.Tensor:
+    """(n, 3, Hf, Wf) u8 frames and their boards' tile plans stacked
+    (``stack_plans``) -> (n, 3, B, B) u8 warped boards, each what
+    ``warp_board_color`` gives with its own plan, in one batch of ops: the
+    taps gathered from the u8 frames (exact in f32), then the same lerps."""
+    n, c = planar_frames.shape[:2]
+    src = planar_frames.reshape(n, c, -1)
+    idx = plan.src_index.reshape(n, 1, -1)
+    shape = (n, c) + tuple(plan.src_index.shape[2:])
+
+    def tap(offset: int) -> torch.Tensor:
+        at = idx if offset == 0 else idx + offset
+        return torch.gather(src, 2, at.expand(n, c, -1)).view(shape).float()
+
+    w = dims.src_w
+    samples = _interpolate(tap(0), tap(1), tap(w), tap(w + 1), plan)
+    tiles = torch.round(samples).clamp(0, 255).to(torch.uint8)
+    return assemble_board_from_tiles(tiles, index)
 
 
 def assemble_board_from_tiles(tiles: torch.Tensor, index: torch.Tensor) -> torch.Tensor:

@@ -55,9 +55,12 @@ grid structure (square heights and widths) and the capture resolution;
 corners may differ.
 
 The enhanced path enhances each stream's board on its own, as the
-single-stream pipeline does: the bilateral and CLAHE kernels launch once
-per stream per tick (per stream and space slot on a mesh with a space
-axis).
+single-stream pipeline does, all of a slot's boards in one batch: the
+boards' color warps, each with its own tile plan, run as one batch of ops
+(matmul_resample.warp_boards_color), and the bilateral and CLAHE kernels
+launch once a tick (once a slot on a mesh),
+inside the span ``pipeline.enhance`` with their launches counted in
+``pipeline.enhance_launches`` (models/pipeline.enhance_span).
 
 Host <-> device traffic: ``step`` makes one H2D copy per tick and slot and
 ``step_chunk`` one per chunk and slot (frames, square masks and flags
@@ -129,6 +132,9 @@ class _Slot(NamedTuple):
     pipe: VisionPipeline  # the device's pipeline, shared by its slots
     consts: StepConsts  # per-square constants of the slot's streams and squares
     plans: Optional[list]  # per-stream geometry: the slot's streams' (plan, dims)
+    # per-stream geometry with the enhancer: the slot's tile plans stacked
+    # (matmul_resample.stack_plans) and the first stream's dims
+    board_plan: Optional[tuple] = None
 
 
 class _Row(NamedTuple):
@@ -300,7 +306,7 @@ class MultiStreamPipeline:
             key = (b.device, len(b.streams), b.squares.start, b.squares.stop)
             if key not in consts:
                 consts[key] = _slot_consts(p, len(b.streams), b.squares)
-            slot_plans = None
+            slot_plans = board_plan = None
             if geos is not None:
                 # Each stream's resample plan (the frame -> board TILE plan
                 # with the enhancer, else the frame -> squares plan), once a
@@ -313,7 +319,10 @@ class MultiStreamPipeline:
                         plans[b.device, s] = mr.build_plan(qx, qy, g.src_h, g.src_w,
                                                            device=b.device)
                 slot_plans = [plans[b.device, s] for s in b.streams]
-            self.slots.append(_Slot(b, p, consts[key], slot_plans))
+                if with_enhancer:
+                    board_plan = (mr.stack_plans([plan for plan, _ in slot_plans]),
+                                  slot_plans[0][1])
+            self.slots.append(_Slot(b, p, consts[key], slot_plans, board_plan))
         first = self.slots[0]
         self.pipe, self.consts, self.device = first.pipe, first.consts, first.block.device
         self._stream_plans = first.plans
@@ -380,11 +389,10 @@ class MultiStreamPipeline:
         else:
             if tp.is_hwc(frames):  # the per-stream plans resample planar frames
                 frames = frames.movedim(-1, -3)
-            if p.with_enhancer:  # each board warped with its plan, all enhanced at once
-                padded = p._enhanced_squares(torch.stack([
-                    mr.warp_board_color(frames[i], plan, dims, p._tile_index)
-                    for i, (plan, dims) in enumerate(slot.plans)
-                ]))
+            if p.with_enhancer:  # each board warped with its plan, all in one batch
+                with tp.enhance_span():
+                    padded = p._enhanced_squares(
+                        mr.warp_boards_color(frames, *slot.board_plan, p._tile_index))
             else:
                 gray = planar_bgr2gray(frames)  # (n, Hf, Wf)
                 padded = torch.cat([mr.resample_gray_u8(gray[i], plan, dims)

@@ -341,6 +341,34 @@ def test_warp_board_color_bit_equal(rng):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("layout", ["planar", "hwc"])
+def test_warp_boards_color_bit_equal(rng, layout):
+    """Three rigs, each its own corners and tile plan, warped in one batch
+    (stack_plans, warp_boards_color) equal the JAX package's matmul warp of
+    each board with its own plan, bit for bit; from planar frames and from
+    the planar view of HWC frames."""
+    jitter = rng.integers(-12, 13, (3,) + DEFAULT_CORNERS.shape)
+    geos = [tgeo.BoardGeometry.from_calibration(DEFAULT_CORNERS + j) for j in jitter]
+    hwc = np.stack([make_board_frame(initial_occupancy(), rng) for _ in geos])
+    plans, wants = [], []
+    for g, frame in zip(geos, hwc):
+        qx, qy, starts, tile = g.board_tile_query_coords()
+        assert g.board_size == geos[0].board_size
+        jplan, jdims = jmr.build_plan(qx, qy, g.src_h, g.src_w)
+        planar = np.ascontiguousarray(np.moveaxis(frame, -1, 0))
+        wants.append(np.asarray(jax.jit(
+            lambda f, p, d=jdims, s=starts, b=g.board_size: jmr.warp_board_color(f, p, d, s, b)
+        )(planar, jplan)))
+        plans.append(tmr.build_plan(qx, qy, g.src_h, g.src_w, device="cpu"))
+    index = torch.as_tensor(tmr.board_tile_index(starts, tile, geos[0].board_size))
+    frames = (_t(np.ascontiguousarray(np.moveaxis(hwc, -1, 1))) if layout == "planar"
+              else _t(hwc).movedim(-1, -3))
+    got = tmr.warp_boards_color(frames, tmr.stack_plans([p for p, _ in plans]), plans[0][1],
+                                index)
+    assert got.shape == (3, 3, geos[0].board_size, geos[0].board_size)
+    np.testing.assert_array_equal(got.numpy(), np.stack(wants))
+
+
 def _board(seed, px=120):
     """A noisy rendered top-down board, planar (3, px, px) u8."""
     occ = initial_occupancy()
