@@ -92,7 +92,7 @@ def load(name: str) -> ctypes.CDLL:
 def launch_counters() -> Dict[str, Callable]:
     """The kernel wrappers by kernel, each counting its launches in
     ``<wrapper>.launches``."""
-    from chessboard_vision_tpu_torch.kernels import bilateral, clahe, score_matmul
+    from chessboard_vision_tpu_torch.kernels import bilateral, clahe, resample, score_matmul
 
     return {
         "score_matmul": score_matmul.score_matmul,
@@ -100,4 +100,5 @@ def launch_counters() -> Dict[str, Callable]:
         "clahe_hist": clahe.clahe_hist,
         "clahe_hist_luts": clahe.clahe_hist_luts,
         "clahe_apply": clahe.clahe_apply,
+        "resample": resample.resample_u8,
     }

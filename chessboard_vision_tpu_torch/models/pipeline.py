@@ -33,7 +33,9 @@ The step records its spans in utils/profiling.py's call table:
 started; the bytes in ``pipeline.h2d_bytes``) and ``pipeline.enqueue``
 (the device work enqueued); with the enhancer, ``pipeline.enhance`` inside
 the enqueue (the color warp and the enhancement; B2-B4's launches in
-``pipeline.enhance_launches``).
+``pipeline.enhance_launches``). The resample kernel's launches in the
+enqueue (a planar frame's squares or color tiles) count in
+``pipeline.resample_launches`` (``resample_count``).
 
 On the card, a conv pipeline without the enhancer replays ``step``'s
 device chain as one CUDA graph from a frame kind's third call on
@@ -53,6 +55,7 @@ from chessboard_vision_tpu_torch.device import resolve_device
 from chessboard_vision_tpu_torch.geometry import BoardGeometry
 from chessboard_vision_tpu_torch.kernels import bilateral as kb
 from chessboard_vision_tpu_torch.kernels import clahe as kc
+from chessboard_vision_tpu_torch.kernels import resample as kr
 from chessboard_vision_tpu_torch.models import piece_detector as pd_model
 from chessboard_vision_tpu_torch.models.enhancer import enhance_planar
 from chessboard_vision_tpu_torch.ops import change as change_ops
@@ -489,7 +492,7 @@ class VisionPipeline:
                     return self._step_impl(st, frame_dev, s2c_mask, flags[0], flags[1],
                                            use_smoothing, use_delta)
 
-                with span("pipeline.enqueue"):
+                with span("pipeline.enqueue"), resample_count():
                     return impl(state) if graph is None else graph.run(state, impl)
 
     def _graph_for(self, frame, use_smoothing: bool, use_delta: bool):
@@ -561,6 +564,18 @@ def enhance_span():
     with span("pipeline.enhance"):
         yield
         count("pipeline.enhance_launches", _enhance_launches() - before)
+
+
+@contextmanager
+def resample_count():
+    """The counter ``pipeline.resample_launches``: the resample kernel's
+    launches inside the block (a graph replay's too: utils/graphs.py adds
+    them to the wrapper's count). Recorded only where the kernel launched,
+    so on the CPU, where the plain ops run, the call has none (reads 0)."""
+    before = kr.resample_u8.launches
+    yield
+    if kr.resample_u8.launches > before:
+        count("pipeline.resample_launches", kr.resample_u8.launches - before)
 
 
 def graphs_engage(device: torch.device, hough_backend: str, with_enhancer: bool) -> bool:

@@ -15,17 +15,32 @@ one fused multiply-add: when the first nonzero tap sits at band offset 0
 its product is the fused one, ``fma(t0, w0, t1*w1)``; otherwise the
 second's is, ``fma(t1, w1, t0*w0)``. ``_lerp`` reproduces that,
 horizontally with ``ux_off`` and vertically with ``uy_off``.
+
+The u8 resample (``resample_boards_u8``, and ``resample_gray_u8``,
+``warp_boards_color`` and ``warp_board_color`` through it) picks by the
+frames' device: on the CPU the plain ops (the four taps gathered, the
+lerps, the round), on a card one launch of the resample kernel
+(kernels/resample.py) for every board and channel, bit-equal to those ops.
+Both read the plan's i32 ``src_index``, ``fx``, ``fy`` and one field
+``build_plan`` adds beside the JAX package's, ``tap_flags`` (``ux_off ==
+0``, ``uy_off == 0`` and ``zero_mask`` in one byte); ``resample`` gives the
+plain ops' f32 samples before the round.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
 
 from chessboard_vision_tpu_torch.device import resolve_device
+from chessboard_vision_tpu_torch.kernels.resample import resample_u8
 from chessboard_vision_tpu_torch.ops.xla_rounding import fma
+
+# The bits of ``tap_flags``: which product each lerp fuses, and the 0 sample.
+FIRST_X, FIRST_Y, ZERO = 1, 2, 4
 
 
 def _round_up(x, m):
@@ -43,8 +58,9 @@ class MatmulResamplePlan(NamedTuple):
     zero_mask: torch.Tensor  # (64, Qr, Qc) bool -> output forced 0
     col_base: torch.Tensor  # (64, Qc) i32 column-band start (region-local)
     ux_off: torch.Tensor  # (64, Qr, Qc) i32 floor-col offset within col band
-    src_index: torch.Tensor  # (64, Qr, Qc) i64 flat source index of the
+    src_index: torch.Tensor  # (64, Qr, Qc) i32 flat source index of the
     #   top-left tap (the row/col the JAX form's band selection lands on)
+    tap_flags: torch.Tensor  # (64, Qr, Qc) u8 FIRST_X | FIRST_Y | ZERO bits
 
 
 class MatmulResampleDims(NamedTuple):
@@ -117,6 +133,9 @@ def build_plan(qx: np.ndarray, qy: np.ndarray, src_h: int, src_w: int, device="c
     else:
         src_col = rx0[:, None, None] + ix_loc
     src_index = src_row * src_w + src_col
+    if src_index.max(initial=0) + src_w + 1 >= 2**31:
+        raise ValueError(f"a {src_h}x{src_w} source is too large for the i32 tap index")
+    tap_flags = (FIRST_X * (ux_off == 0) + FIRST_Y * (uy_off == 0) + ZERO * bad).astype(np.uint8)
 
     def t(a, dtype=None):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
@@ -130,7 +149,8 @@ def build_plan(qx: np.ndarray, qy: np.ndarray, src_h: int, src_w: int, device="c
         zero_mask=t(bad),
         col_base=t(col_base.astype(np.int32)),
         ux_off=t(ux_off.astype(np.int32)),
-        src_index=t(src_index.astype(np.int64)),
+        src_index=t(src_index.astype(np.int32)),
+        tap_flags=t(tap_flags),
     )
     dims = MatmulResampleDims(
         q_rows=Qr,
@@ -155,27 +175,66 @@ def _lerp(p0, p1, w0, w1, first_fused):
 def resample(gray: torch.Tensor, plan: MatmulResamplePlan, dims: MatmulResampleDims):
     """gray: (..., src_h, src_w) u8/f32 -> (..., 64, Qr, Qc) f32 bilinear
     samples of each leading image (a planar frame's 3 channels at once)."""
-    src = gray.reshape(*gray.shape[:-2], -1).float()
-    idx = plan.src_index
-    w = dims.src_w
-    return _interpolate(src[..., idx], src[..., idx + 1], src[..., idx + w],
-                        src[..., idx + w + 1], plan)
+    lead = tuple(gray.shape[:-2])
+    out = _samples(gray.reshape((1, -1) + tuple(gray.shape[-2:])), plan, dims)
+    return out.view(lead + tuple(out.shape[-3:]))
 
 
-def _interpolate(t00, t01, t10, t11, plan: MatmulResamplePlan) -> torch.Tensor:
-    """The bilinear sample of the four taps with the plan's weights; 0 where
-    the plan's anchor leaves the source."""
-    fx, fy = plan.fx, plan.fy
-    ox, oy = plan.ux_off == 0, plan.uy_off == 0
-    top = _lerp(t00, t01, 1.0 - fx, fx, ox)
-    bot = _lerp(t10, t11, 1.0 - fx, fx, ox)
+def _samples(frames: torch.Tensor, plan: MatmulResamplePlan,
+             dims: MatmulResampleDims) -> torch.Tensor:
+    """(n, C, Hf, Wf) frames, a plan of n boards (or of one, without the
+    board axis) -> (n, C, 64, Qr, Qc) f32 samples: the four taps gathered
+    (u8 is exact in f32), then the lerps; 0 where the plan's anchor leaves
+    the source."""
+    n, c = frames.shape[:2]
+    src = frames.reshape(n, c, -1)
+    idx = plan.src_index.long().reshape(-1, 1, math.prod(plan.src_index.shape[-3:]))
+    shape = (n, c) + tuple(plan.src_index.shape[-3:])
+
+    def tap(offset: int) -> torch.Tensor:
+        at = idx if offset == 0 else idx + offset
+        return torch.gather(src, 2, at.expand(n, c, -1)).view(shape).float()
+
+    w, fx, fy, flags = dims.src_w, plan.fx, plan.fy, plan.tap_flags
+    ox, oy = (flags & FIRST_X) != 0, (flags & FIRST_Y) != 0
+    top = _lerp(tap(0), tap(1), 1.0 - fx, fx, ox)
+    bot = _lerp(tap(w), tap(w + 1), 1.0 - fx, fx, ox)
     out = _lerp(top, bot, 1.0 - fy, fy, oy)
-    return torch.where(plan.zero_mask, 0.0, out)
+    return torch.where((flags & ZERO) != 0, 0.0, out)
+
+
+def use_kernel(frames: torch.Tensor) -> bool:
+    """Whether the u8 resample of ``frames`` launches the kernel: off the
+    CPU (a tensor the kernel cannot take raises there)."""
+    return frames.device.type != "cpu"
+
+
+def resample_boards_u8(frames: torch.Tensor, plan: MatmulResamplePlan,
+                       dims: MatmulResampleDims) -> torch.Tensor:
+    """(n, C, Hf, Wf) frames, each board with its own plan (``stack_plans``;
+    one plan without a board axis for n = 1) -> (n, C, 64, Qr, Qc) u8
+    bilinear samples with the pipeline's round-half-even, clip convention:
+    on a card one launch for all boards and channels, else the plain ops."""
+    if use_kernel(frames):
+        return resample_u8(frames, plan, dims)
+    return resample_boards_plain(frames, plan, dims)
+
+
+def resample_boards_plain(frames: torch.Tensor, plan: MatmulResamplePlan,
+                          dims: MatmulResampleDims) -> torch.Tensor:
+    """``resample_boards_u8`` in plain ops: ``_samples``, rounded and
+    clipped."""
+    return torch.round(_samples(frames, plan, dims)).clamp(0, 255).to(torch.uint8)
 
 
 def resample_gray_u8(gray_frame: torch.Tensor, plan, dims) -> torch.Tensor:
-    """u8 output with the pipeline's round-half-even, clip convention."""
-    return torch.round(resample(gray_frame, plan, dims)).clamp(0, 255).to(torch.uint8)
+    """(..., src_h, src_w) images, one plan -> (..., 64, Qr, Qc) u8 with the
+    pipeline's round-half-even, clip convention (the images as the
+    channels of one board)."""
+    lead = tuple(gray_frame.shape[:-2])
+    out = resample_boards_u8(gray_frame.reshape((1, -1) + tuple(gray_frame.shape[-2:])),
+                             plan, dims)
+    return out.view(lead + tuple(out.shape[-3:]))
 
 
 # ---------------------------------------------------------------------------
@@ -207,21 +266,9 @@ def warp_boards_color(planar_frames: torch.Tensor, plan: MatmulResamplePlan,
                       dims: MatmulResampleDims, index: torch.Tensor) -> torch.Tensor:
     """(n, 3, Hf, Wf) u8 frames and their boards' tile plans stacked
     (``stack_plans``) -> (n, 3, B, B) u8 warped boards, each what
-    ``warp_board_color`` gives with its own plan, in one batch of ops: the
-    taps gathered from the u8 frames (exact in f32), then the same lerps."""
-    n, c = planar_frames.shape[:2]
-    src = planar_frames.reshape(n, c, -1)
-    idx = plan.src_index.reshape(n, 1, -1)
-    shape = (n, c) + tuple(plan.src_index.shape[2:])
-
-    def tap(offset: int) -> torch.Tensor:
-        at = idx if offset == 0 else idx + offset
-        return torch.gather(src, 2, at.expand(n, c, -1)).view(shape).float()
-
-    w = dims.src_w
-    samples = _interpolate(tap(0), tap(1), tap(w), tap(w + 1), plan)
-    tiles = torch.round(samples).clamp(0, 255).to(torch.uint8)
-    return assemble_board_from_tiles(tiles, index)
+    ``warp_board_color`` gives with its own plan, all boards in one
+    ``resample_boards_u8``."""
+    return assemble_board_from_tiles(resample_boards_u8(planar_frames, plan, dims), index)
 
 
 def assemble_board_from_tiles(tiles: torch.Tensor, index: torch.Tensor) -> torch.Tensor:

@@ -49,14 +49,17 @@ single-stream pipeline's gather warp (ops/warp.py) and planar frames its
 matmul resample. Per-stream calibration: pass a LIST of N BoardGeometry
 objects instead of one. Each stream's squares are then resampled with its
 own plan (with the enhancer: its board warped with its own tile plan) from
-planar frames (HWC frames are permuted to planar on the device, the JAX
-package's host conversion); the rest is shared. All rigs must share the
-grid structure (square heights and widths) and the capture resolution;
-corners may differ.
+planar frames (HWC frames are viewed planar on the device, the JAX
+package's host conversion); the rest is shared. A slot's plans are stacked
+once, at build, and its boards resample together
+(matmul_resample.resample_boards_u8): on a card one launch of the resample
+kernel a tick and slot, counted in ``pipeline.resample_launches``
+(models/pipeline.resample_count). All rigs must share the grid structure
+(square heights and widths) and the capture resolution; corners may differ.
 
 The enhanced path enhances each stream's board on its own, as the
 single-stream pipeline does, all of a slot's boards in one batch: the
-boards' color warps, each with its own tile plan, run as one batch of ops
+boards' color warps, each with its own tile plan, are that one resample
 (matmul_resample.warp_boards_color), and the bilateral and CLAHE kernels
 launch once a tick (once a slot on a mesh),
 inside the span ``pipeline.enhance`` with their launches counted in
@@ -131,9 +134,9 @@ class _Slot(NamedTuple):
     block: mesh_lib.SlotBlock
     pipe: VisionPipeline  # the device's pipeline, shared by its slots
     consts: StepConsts  # per-square constants of the slot's streams and squares
-    plans: Optional[list]  # per-stream geometry: the slot's streams' (plan, dims)
-    # per-stream geometry with the enhancer: the slot's tile plans stacked
-    # (matmul_resample.stack_plans) and the first stream's dims
+    # per-stream geometry: the slot's streams' plans (tile plans with the
+    # enhancer) stacked (matmul_resample.stack_plans) and the first
+    # stream's dims; None for the shared geometry
     board_plan: Optional[tuple] = None
 
 
@@ -306,7 +309,7 @@ class MultiStreamPipeline:
             key = (b.device, len(b.streams), b.squares.start, b.squares.stop)
             if key not in consts:
                 consts[key] = _slot_consts(p, len(b.streams), b.squares)
-            slot_plans = board_plan = None
+            board_plan = None
             if geos is not None:
                 # Each stream's resample plan (the frame -> board TILE plan
                 # with the enhancer, else the frame -> squares plan), once a
@@ -318,14 +321,12 @@ class MultiStreamPipeline:
                                   else g.square_query_coords())
                         plans[b.device, s] = mr.build_plan(qx, qy, g.src_h, g.src_w,
                                                            device=b.device)
-                slot_plans = [plans[b.device, s] for s in b.streams]
-                if with_enhancer:
-                    board_plan = (mr.stack_plans([plan for plan, _ in slot_plans]),
-                                  slot_plans[0][1])
-            self.slots.append(_Slot(b, p, consts[key], slot_plans, board_plan))
+                board_plan = (mr.stack_plans([plans[b.device, s][0] for s in b.streams]),
+                              plans[b.device, b.streams[0]][1])
+            self.slots.append(_Slot(b, p, consts[key], board_plan))
         first = self.slots[0]
         self.pipe, self.consts, self.device = first.pipe, first.consts, first.block.device
-        self._stream_plans = first.plans
+        self._stream_plans = first.board_plan
         self._rows = self._layout(everyone)
         # The rows whose frames ``step`` takes, and the rows it reports.
         self.frame_rows = mesh_lib.local_rows(blocks)
@@ -384,7 +385,7 @@ class MultiStreamPipeline:
         its m squares a stream, and the change model's own blur (or None)."""
         slot = slot or self.slots[0]
         p = slot.pipe
-        if slot.plans is None:  # one batched warp or resample for the shared plan
+        if slot.board_plan is None:  # one batched warp or resample for the shared plan
             squares = p.preprocess(frames)
         else:
             if tp.is_hwc(frames):  # the per-stream plans resample planar frames
@@ -393,10 +394,9 @@ class MultiStreamPipeline:
                 with tp.enhance_span():
                     padded = p._enhanced_squares(
                         mr.warp_boards_color(frames, *slot.board_plan, p._tile_index))
-            else:
-                gray = planar_bgr2gray(frames)  # (n, Hf, Wf)
-                padded = torch.cat([mr.resample_gray_u8(gray[i], plan, dims)
-                                    for i, (plan, dims) in enumerate(slot.plans)])
+            else:  # each board's squares with its plan, all in one batch
+                padded = mr.resample_boards_u8(planar_bgr2gray(frames)[:, None], *slot.board_plan)
+                padded = padded.reshape((-1,) + tuple(padded.shape[-2:]))  # (n*64, Qr, Qc)
             squares = p.blur(padded)
         sq = slot.block.squares
         if sq == ALL_SQUARES:
@@ -602,7 +602,7 @@ class MultiStreamPipeline:
         with span("pipeline.step"):
             flags = self._row_flags(self._flags((), s2c_masks, refresh, np.shape(frames)[0]))
             inputs = self._uploads(frames, flags, 0)
-            with span("pipeline.enqueue"):
+            with span("pipeline.enqueue"), tp.resample_count():
                 return self._tick_slots(state, inputs)
 
     def step_chunk(self, state, frames):

@@ -8,9 +8,9 @@ the last line:
 1. device: a CUDA card of compute capability 9.0, its name, and its name
    and power limit as nvidia-smi gives them.
 2. build: every kernel of the port (chessboard_vision_tpu_torch/kernels/
-   score_matmul.cu, bilateral.cu, clahe.cu) compiled with nvcc for sm_90a,
-   one nvcc process each, all started together; the seconds each took and
-   nvcc's register, shared-memory and spill lines.
+   score_matmul.cu, bilateral.cu, clahe.cu, resample.cu) compiled with
+   nvcc for sm_90a, one nvcc process each, all started together; the
+   seconds each took and nvcc's register, shared-memory and spill lines.
 3. kernels vs their plain versions at the 1080p shapes, each timed by its
    device time under torch.profiler (plain, kernel, kernel, plain; a
    kernel's time is the median of its launches' records, which records
@@ -65,6 +65,12 @@ the last line:
    records a call seen, its held-stream CUDA-event time and its bound, B3
    beside torch.bincount of the pad's keys (also at 720x1280 in the ui
    phase).
+   Then the resample kernel (kernels/resample.cu, which has no TPU
+   counterpart) at the halls' shapes: 8 rigs' square plans on 8 gray
+   1080p frames and their tile plans on the planar view of the 8 HWC
+   frames, one launch each, bit-equal to the plain chain on the card, its
+   device time beside the plain chain's, its bound (the source pixels its
+   taps touch and the output) and, apart, its 13-byte plan's read.
 4. plain path: VisionPipeline(device="cuda") on rendered 1920x1080 frames
    of the benchmark's board layout, each handed over three ways: planar
    host arrays and HWC host arrays (the camera's layout, which the step
@@ -279,12 +285,16 @@ calls as an upper bound for a step that synchronizes).
 Kernel launch counts are set to 0 just before each path and read just
 after it: the plain path must launch B1 and none of B2-B4, the enhanced
 path all four, with exactly one B3 (histograms + LUTs) and one B4 launch
-per CLAHE call, the exact path none, the streams path all four, the mesh
+per CLAHE call, the exact path none of B1-B4, the streams path all four, the mesh
 path all four (the unsharded pipeline it is compared with and timed
 beside counts nothing; the fleet's launches are in its worker
 processes), the footage path all four, the live path all four (B2-B4 on the enhanced
 streams), the ui path all four, the bench all four; B1's 1080p launches must take
-the TMA kernel. On the exact, streams, mesh, footage, live and ui paths the counts are
+the TMA kernel. Every path must also launch the resample kernel: exactly
+once a per-rig tick (a mesh's: once a slot), not at all on a shared-geometry
+tick of HWC host frames or in api.enhance_frame and enhance_demo, and at
+least once a step where single-board steps take host frames (planar: the
+plain, enhanced, exact, footage, live and ui paths). On the exact, streams, mesh, footage, live and ui paths the counts are
 set to 0 just before each call of the path's pipelines, sessions, entry
 points and tools and read
 just after it, so the pipelines and plain versions they are compared with
@@ -317,15 +327,17 @@ from torch.utils._pytree import tree_leaves
 from chessboard_vision_tpu_torch.kernels import bilateral as kb
 from chessboard_vision_tpu_torch.kernels import SOURCES, build_all, launch_counters
 from chessboard_vision_tpu_torch.kernels import clahe as kc
+from chessboard_vision_tpu_torch.kernels import resample as kr
 from chessboard_vision_tpu_torch.kernels import score_matmul as sm
 from chessboard_vision_tpu_torch.models import pipeline as tp
 from chessboard_vision_tpu_torch.models import PieceDetectorModel
 from chessboard_vision_tpu_torch.models import enhancer as tenhancer
 from chessboard_vision_tpu_torch.models.enhancer import correct_lighting
 from chessboard_vision_tpu_torch.ops import enhance as tenh
+from chessboard_vision_tpu_torch.ops import matmul_resample as mr
 from chessboard_vision_tpu_torch.ops import warp as warp_ops
 from chessboard_vision_tpu_torch.ops.canny import canny
-from chessboard_vision_tpu_torch.ops.color import bgr2gray, planar_bgr2lab
+from chessboard_vision_tpu_torch.ops.color import bgr2gray, planar_bgr2gray, planar_bgr2lab
 from chessboard_vision_tpu_torch.ops.hough_conv import edge_planes
 from chessboard_vision_tpu_torch.ops.layout import to_planar
 from chessboard_vision_tpu_torch.geometry import BoardGeometry
@@ -1429,7 +1441,13 @@ def session_phase(corners, camera, rng, label, use_enhancer, hough_backend="auto
     phase(label, f"session committed {committed} in {n_frames} frames; FEN {script.fen()}")
 
 
+# Every kernel's launch counter, which the path checks read. The resample
+# kernel (port-only) launches once a step where a planar frame (a host
+# array is taken planar) or a per-rig tick is resampled, and not where HWC
+# frames on the card or a shared-geometry tick's take the gather warp; the
+# checks that no enhancement kernel launched leave it out (ENHANCEMENT).
 COUNTERS = launch_counters()
+ENHANCEMENT = ("bilateral", "clahe_hist", "clahe_hist_luts", "clahe_apply")
 # The path's wrapper of each kernel of the JSON record, where the names
 # differ: the path reaches B3's kernel through clahe_hist_luts.
 PATH_WRAPPER = {"clahe_hist": "clahe_hist_luts"}
@@ -1448,13 +1466,15 @@ def counted(total):
     total.update(got)
 
 
-def check_tick(got, n, label, enhanced=False):
+def check_tick(got, n, label, enhanced=False, resample=0):
     """One tick of n streams: B1 once, on the TMA kernel with n*64 columns;
     B2, B3 (through clahe_hist_luts) and B4 once when enhanced (one launch
-    for the n boards), else not at all."""
+    for the n boards), else not at all; the resample kernel ``resample``
+    times (1 on per-rig plans: every board in one launch; 0 where the
+    shared geometry warps HWC host frames by gather)."""
     k = 1 if enhanced else 0
     want = {"score_matmul": 1, "bilateral": k, "clahe_hist": 0, "clahe_hist_luts": k,
-            "clahe_apply": k}
+            "clahe_apply": k, "resample": resample}
     check(got == want, f"{label}: launches in one tick {got}, want {want}")
     path, shape = sm.score_matmul.last_path, sm.score_matmul.last_shape
     check(path == "tma" and shape[1] == n * 64,
@@ -1524,7 +1544,10 @@ def exact_phase(corners, camera, rng, smi):
               "exact: occupancy after e2e4 != truth")
         exact_occ += [o.occupancy for o in outs]
         session_phase(corners, camera, rng, "exact", False, hough_backend="exact")
-    check(not any(got.values()), f"the exact path launched kernels: {got}")
+    check(not any(got[k] for k in COUNTERS if k != "resample")
+          and got["resample"] >= EXACT_FRAMES + 2,
+          f"the exact path launched kernels other than the resample, or resampled fewer "
+          f"than its {EXACT_FRAMES + 2} planar frames: {got}")
     phase("exact", f"clean frame equals the truth, step_many over {EXACT_FRAMES} frames equals "
           f"{EXACT_FRAMES} sequential steps, e2e4 shows and the session committed it; "
           f"kernel launches on this path: {got}")
@@ -1820,7 +1843,7 @@ def streams_phase(corners, camera, g, enhanced_pipe, smi):
             state = ms2.capture_reference(ms2.init_state(), refs)
         with counted(launches) as got:
             state, out = ms2.step(state, frames, s2c_masks=_all_masks(2))
-        check_tick(got, 2, f"{kind} per-stream geometry", enhanced)
+        check_tick(got, 2, f"{kind} per-stream geometry", enhanced, resample=1)
         host = tms.outputs_to_numpy(out)
         for s, geo in enumerate((g, g2)):
             # Per-stream plans resample planar frames (the N-stream step
@@ -1927,11 +1950,13 @@ def check_mesh_tick(got, ms, label, enhanced=False):
     """One tick of a meshed pipeline: B1 once a slot, on the TMA kernel at
     the slot's width (its streams times its squares); B2, B3 (through
     clahe_hist_luts) and B4 once a slot when enhanced (one launch for the
-    slot's boards), else not at all."""
+    slot's boards), else not at all; the resample kernel once a slot on
+    per-rig plans, else not at all (the mesh's ticks are HWC host frames,
+    which the shared geometry warps by gather)."""
     slots = len(ms.slots)
     k = slots if enhanced else 0
     want = {"score_matmul": slots, "bilateral": k, "clahe_hist": 0, "clahe_hist_luts": k,
-            "clahe_apply": k}
+            "clahe_apply": k, "resample": slots if ms._stream_plans is not None else 0}
     check(got == want, f"{label}: launches in one tick {got}, want {want}")
     width = len(ms.slots[0].block.streams) * len(ms.slots[0].block.squares)
     path, shape = sm.score_matmul.last_path, sm.score_matmul.last_shape
@@ -2304,8 +2329,10 @@ def footage_phase(corners, camera, smi):
           f"footage: the timeline differs from the expected text:\n{timeline}")
     pgn = game_to_pgn(moves, headers={"Event": "digitized recording"}, claim_draws=True)
     check(pgn == FOOTAGE_PGN, f"footage: the PGN differs from the expected text:\n{pgn}")
-    want = dict.fromkeys(COUNTERS, 0) | {"score_matmul": n}
-    check(got == want, f"footage: launches {got}, want {want} (B1 once a processed frame)")
+    want = dict.fromkeys(ENHANCEMENT, 0) | {"score_matmul": n}
+    check({name: got[name] for name in want} == want and got["resample"] >= n,
+          f"footage: launches {got}, want {want} (B1 once a processed frame) and the resample "
+          f"at least once a processed frame")
     phase("footage", f"run_capture over {len(frames)} frames in memory ({n} processed): "
           f"committed {moves} on frames {commits}, FEN and JSONL timeline and "
           f"PGN as expected; launches {got}; {timing(session, wall_ms)}; on {smi}")
@@ -2353,9 +2380,9 @@ def footage_phase(corners, camera, smi):
     k = calls[0]
     want = {"score_matmul": n, "bilateral": k, "clahe_hist": 0, "clahe_hist_luts": k,
             "clahe_apply": k}
-    check(k == n + 1 and got == want,
+    check(k == n + 1 and {name: got[name] for name in want} == want and got["resample"] >= k,
           f"footage enhanced: {k} CLAHE calls for {n} frames and the reference, launches {got}, "
-          f"want {want}")
+          f"want {want} and a resample (the board's color warp) at least once a CLAHE call")
     phase("footage", f"enhanced run_capture: committed {moves}; {k} CLAHE calls, each one B3 "
           f"and one B4 launch; launches {got}; {timing(session, wall_ms)}; on {smi}")
 
@@ -2475,7 +2502,7 @@ def enhance_frame_phase(frame, launches, smi):
         h, w = crop.shape[:2]
         with counted(launches) as got:
             out = api.enhance_frame(crop, device=DEVICE)
-        one = dict.fromkeys(COUNTERS, 1) | {"score_matmul": 0, "clahe_hist": 0}
+        one = dict.fromkeys(COUNTERS, 1) | {"score_matmul": 0, "clahe_hist": 0, "resample": 0}
         check(got == one, f"enhance_frame {h}x{w}: launches {got}, want {one}")
         planar = torch.as_tensor(to_planar(crop), device=DEVICE)
         lab_l = planar_bgr2lab(planar)[0]
@@ -2504,6 +2531,81 @@ def enhance_frame_phase(frame, launches, smi):
               f"versions on the card; card vs CPU: {int((d > 0).sum())} of {d.size} values "
               f"differ, max {int(d.max())} (limits {ENHANCE_MAX_DIFF}, {ENHANCE_FRACTION:g}); "
               f"{call:.3f} ms a call (median of 5, host clock, synchronized) on {smi}")
+
+
+RESAMPLE_PLAN_BYTES = 13  # a sample's plan as the kernel reads it: i32 index, f32 fx, fy, u8 flags
+RESAMPLE_BOARDS, RESAMPLE_JITTER_PX = 8, 40  # the halls' rigs (benchmark/configs/hall_1080p.json)
+
+
+def resample_bound(frames, plan, dims):
+    """The resample's bound as a function: the source pixels its taps touch
+    (of each board's live samples, each pixel read once) and the u8 samples
+    written once, at the memory rate. Beside it, the ms of reading the
+    plan once in the kernel's layout (13 bytes a sample), which is this
+    kernel's choice and not the function's. (bound ms, bound_by, plan ms,
+    source bytes touched)."""
+    n, c, _, w = frames.shape
+    index = plan.src_index.reshape(n, -1).long()
+    live = (plan.tap_flags.reshape(n, -1) & mr.ZERO) == 0
+    touched = 0
+    for i, keep in zip(index, live):
+        i = i[keep]
+        touched += torch.unique(torch.cat([i, i + 1, i + w, i + w + 1])).numel()
+    samples = n * 64 * dims.q_rows * dims.q_cols
+    bound_ms, bound_by = bound(c * (touched + samples), 0, F32_FLOPS)
+    return bound_ms, bound_by, samples * RESAMPLE_PLAN_BYTES / HBM_BYTES_PER_S * 1e3, c * touched
+
+
+def resample_phase(smi):
+    """The resample kernel (kernels/resample.cu, port-only) at the halls'
+    shapes: 8 rigs around the benchmark's board, each corner moved by up to
+    40 px; the 1080p hall's square plans on the 8 frames' gray (C = 1) and
+    the enhanced hall's tile plans on the planar view of the 8 HWC frames (C
+    = 3), random u8. One launch each, bit-equal to the plain chain on the
+    card; its time alone (launch_ms's median record, held_ms beside) against
+    the plain chain's, its bound (resample_bound) and the plan's read.
+    Returns the JSON record of the 1080p hall's squares."""
+    rng = np.random.default_rng(9)
+    base = bench_corners(HEIGHT, WIDTH)
+    geos = [BoardGeometry.from_calibration(
+        np.rint(base + rng.uniform(-RESAMPLE_JITTER_PX, RESAMPLE_JITTER_PX, base.shape))
+        .astype(np.int64), display_size=(WIDTH, HEIGHT)) for _ in range(RESAMPLE_BOARDS)]
+    gen = torch.Generator(device=DEVICE).manual_seed(9)
+    hwc = torch.randint(0, 256, (RESAMPLE_BOARDS, HEIGHT, WIDTH, 3), dtype=torch.uint8,
+                        device=DEVICE, generator=gen)
+    planar = hwc.movedim(-1, -3)
+    record = None
+    for label, frames, tiles in (("hall squares", planar_bgr2gray(planar)[:, None], False),
+                                 ("enhanced hall tiles", planar, True)):
+        plans = [mr.build_plan(*(g.board_tile_query_coords()[:2] if tiles
+                                 else g.square_query_coords()), g.src_h, g.src_w, device=DEVICE)
+                 for g in geos]
+        plan, dims = mr.stack_plans([p for p, _ in plans]), plans[0][1]
+        before = kr.resample_u8.launches
+        got = mr.resample_boards_u8(frames, plan, dims)
+        check(kr.resample_u8.launches == before + 1,
+              f"resample ({label}): {kr.resample_u8.launches - before} launches, not 1")
+        check(torch.equal(got, mr.resample_boards_plain(frames, plan, dims)),
+              f"resample ({label}): the kernel differs from the plain chain")
+        kernel_ms, plain_ms, held = kernel_vs_plain_ms(
+            lambda: mr.resample_boards_u8(frames, plan, dims),
+            lambda: mr.resample_boards_plain(frames, plan, dims), 20)
+        bound_ms, bound_by, plan_ms, touched = resample_bound(frames, plan, dims)
+        n, c = frames.shape[:2]
+        phase("resample", f"{label} ({n} boards x {c} channel(s) x 64 x {dims.q_rows}x"
+              f"{dims.q_cols}): bit-equal to the plain chain, one launch; kernel "
+              f"{kernel_ms * 1e3:.1f} us (held-stream {held * 1e3:.1f} us), plain chain "
+              f"{plain_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.1f} us by {bound_by} (the "
+              f"{touched / 1e6:.2f} MB of source its taps touch and the output; "
+              f"{bound_ms / kernel_ms:.0%} of it); the {RESAMPLE_PLAN_BYTES}-byte plan's read "
+              f"alone {plan_ms * 1e3:.1f} us ({(bound_ms + plan_ms) / kernel_ms:.0%} with the "
+              f"bound); no library call; on {smi}")
+        if record is None:
+            record = dict(name="resample", route="cuda",
+                          source="chessboard_vision_tpu_torch/kernels/resample.cu",
+                          replaces=None, max_abs_err=0, ms=kernel_ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    return record
 
 
 def whole_frame_phase(frame, smi, label="api.enhance_frame's shape", where="kernel"):
@@ -2762,8 +2864,10 @@ def live_game_phase(smi, launches):
           f"live: the PGN does not hold the three moves:\n{pgn}")
     check(got["score_matmul"] >= result.frames,
           f"live: B1 launched {got['score_matmul']} times for {result.frames} steps")
-    check(not any(got[k] for k in COUNTERS if k != "score_matmul"),
+    check(not any(got[k] for k in ENHANCEMENT),
           f"live: the plain live path launched an enhancement kernel: {got}")
+    check(got["resample"] >= result.frames,
+          f"live: the resample launched {got['resample']} times for {result.frames} steps")
     (dev, d2h, host), found = drift_split_ms(frames[-1])
     check(np.abs(found.reshape(4, 2) - bumped).max() <= 10, f"live: detector found {found}")
     frame_no, recal_ms, recal_frame_ms = recals[0]
@@ -2851,10 +2955,10 @@ def live_streams_phase(smi, launches):
         ticks = sess.frame_count - rebuilt_at
         k = ticks if enhanced else 0
         want = {"score_matmul": ticks, "bilateral": k, "clahe_hist": 0, "clahe_hist_luts": k,
-                "clahe_apply": k}
+                "clahe_apply": k, "resample": ticks}
         check(after_rebuild == want, f"{label}: launches on the rebuilt per-stream plans "
-              f"{after_rebuild}, want {want} (B1 once a tick, B2-B4 once a tick for the "
-              f"{n} boards)")
+              f"{after_rebuild}, want {want} (B1 and the resample once a tick, B2-B4 once a "
+              f"tick for the {n} boards)")
         check(all(st.game.get_fen() == after.fen() for st in sess.streams), f"{label}: FEN")
         check(got["score_matmul"] >= sess.frame_count, f"{label}: B1 launches {got}")
         plain = [ms for ms, rebuilt in checks if not rebuilt]
@@ -3148,8 +3252,8 @@ def ui_piece_detector(camera, config, truth, launches, smi):
     drawn = _squares_of_circles(gui.drawn(UI_STILL, "circle"), board // 8)
     check(drawn == truth, f"ui piece detector: squares circled at the default settings "
           f"{sorted(drawn ^ truth)} differ from the truth")
-    check(got["score_matmul"] == n and not any(got[k] for k in COUNTERS if k != "score_matmul"),
-          f"ui piece detector: launches {got} for {n} frames")
+    check(got["score_matmul"] == n and not any(got[k] for k in ENHANCEMENT)
+          and got["resample"] >= n, f"ui piece detector: launches {got} for {n} frames")
     errs, lines, shapes = [], [], set()
     for b, (frame, s) in zip(timed.builds, zip(rebuilt, settings)):
         shape = tuple(b["pipe"].consts.conv_plan.basis.shape)
@@ -3193,8 +3297,8 @@ def ui_sensitivity(renders, config, launches, smi):
     dests = _squares_of_circles(gui.drawn(n, "circle"), sq)
     check(marked == [(4, 1)] and dests == {(4, 2), (4, 3)},
           f"ui sensitivity: the lifted preview marks {marked} with destinations {sorted(dests)}")
-    check(got["score_matmul"] == n and not any(got[k] for k in COUNTERS if k != "score_matmul"),
-          f"ui sensitivity: launches {got} for {n} frames")
+    check(got["score_matmul"] == n and not any(got[k] for k in ENHANCEMENT)
+          and got["resample"] >= n, f"ui sensitivity: launches {got} for {n} frames")
     err, line = b1_at_plan(timed.builds[-1]["pipe"], frames[-1], "ui sensitivity",
                            timed=False)  # the default plan's shape, timed above
     per = gui.frame_ms(skip=(1, UI_STILL + 1))
@@ -3244,7 +3348,7 @@ def ui_enhance_demo(frames, launches, smi):
     with counted(launches) as got:
         shown = ed.run(UiCamera(frames), gui, device=DEVICE)
     want = {"score_matmul": 0, "bilateral": n, "clahe_hist": 0, "clahe_hist_luts": n,
-            "clahe_apply": n}
+            "clahe_apply": n, "resample": 0}
     check(shown == n and got == want, f"ui enhance demo: launches {got}, want {want}")
     check([w for _, w, _ in gui.shown[:3]] == ["Original", "Enhanced", "Analysis (Otsu)"],
           "ui enhance demo: windows")
@@ -3658,14 +3762,16 @@ def main():
     records += enhancement_kernels_phase(pipe, frame, smi)
     batched_enhancement_phase(pipe, camera, smi)
     whole_frame_phase(frame, smi)
+    records.append(resample_phase(smi))
     elapsed("kernels")
 
     plain = run_path("plain", False, corners, camera, rng, CHUNK, smi)
     check(plain["score_matmul"] > 0, "the plain path never launched score_matmul")
     check(sm.score_matmul.last_path == "tma",
           f"the plain path's score_matmul took the {sm.score_matmul.last_path} kernel")
-    check(not any(plain[k] for k in COUNTERS if k != "score_matmul"),
+    check(not any(plain[k] for k in ENHANCEMENT),
           "the plain path launched an enhancement kernel")
+    check(plain["resample"] > 0, "the plain path's planar frames never launched the resample")
     enhanced = run_path("enhanced", True, corners, camera, rng, ENHANCED_CHUNK, smi)
     missing = [k for k in COUNTERS if k != "clahe_hist" and enhanced[k] == 0]
     check(not missing, f"the enhanced path never launched {missing}")

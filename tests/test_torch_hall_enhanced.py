@@ -14,6 +14,13 @@ An enhanced call records one span ``pipeline.enhance`` inside
 ``pipeline.enhance_launches``: 0 on the CPU, where the plain versions run,
 and 3 where the kernels run (stood in for here), one each for all boards. A
 call without the enhancer records neither.
+
+The resample kernel's launches in a call count in
+``pipeline.resample_launches``: with the kernel stood in for, 1 a tick for
+the per-rig hall, plain or enhanced (every board in one launch), and for a
+single board's planar frame; 0 where HWC frames take the gather warp. On
+the CPU, where the plain ops run, no call records it, and the outputs are
+those of the stood-in kernel and of one resample a board.
 """
 
 import json
@@ -31,8 +38,11 @@ from benchmark.reference.geometry import BoardGeometry as RefGeometry
 from chessboard_vision_tpu_torch.geometry import BoardGeometry
 from chessboard_vision_tpu_torch.kernels import bilateral as kb
 from chessboard_vision_tpu_torch.kernels import clahe as kc
+from chessboard_vision_tpu_torch.kernels import resample as kr
 from chessboard_vision_tpu_torch.models.pipeline import VisionPipeline
 from chessboard_vision_tpu_torch.ops import enhance as enh_ops
+from chessboard_vision_tpu_torch.ops import matmul_resample as mr
+from chessboard_vision_tpu_torch.ops.color import planar_bgr2gray
 from chessboard_vision_tpu_torch.parallel.multistream import MultiStreamPipeline, outputs_to_numpy
 from chessboard_vision_tpu_torch.utils import profiling as tprof
 
@@ -161,3 +171,80 @@ def test_the_enhance_counter_reads_the_kernels_launches(monkeypatch, empty_table
 def test_a_plain_call_records_neither(empty_table, which):
     call = one_call(which, enhanced=False)
     assert "pipeline.enhance" not in call.spans and dict(call.counts) == {}
+
+
+def resample_call(which: str, enhanced: bool):
+    """``one_call``, and the single board on an HWC tensor, which keeps its
+    layout and takes the gather warp."""
+    if which != "player_hwc":
+        return one_call(which, enhanced)
+    corners, frames = rigs_and_frames(SEED)
+    pipe = VisionPipeline(geometries(corners)[0], with_enhancer=enhanced, hough_backend="conv",
+                          device="cpu")
+    frame = torch.from_numpy(frames(1)[0].copy())
+    state = pipe.capture_reference(pipe.init_state(), frame)
+    tprof.clear()
+    pipe.step(state, frame)
+    (call,) = tprof.recorded_calls()
+    return call
+
+
+@pytest.fixture
+def resample_stood_in(monkeypatch):
+    """The resample kernel stood in for by its plain version behind a
+    counting wrapper (the kernel wrapper's own counter)."""
+    monkeypatch.setattr(mr, "use_kernel", lambda frames: True)
+    monkeypatch.setattr(kr.resample_u8, "launches", kr.resample_u8.launches)
+
+    def launch(frames, plan, dims):
+        kr.resample_u8.launches += 1
+        return mr.resample_boards_plain(frames, plan, dims)
+
+    monkeypatch.setattr(mr, "resample_u8", launch)
+
+
+@pytest.mark.parametrize("which,enhanced,launches", [
+    ("hall_rigs", False, 1), ("hall_rigs", True, 1), ("player", False, 1), ("player", True, 1),
+    ("hall_shared", False, 0), ("player_hwc", False, 0), ("player_hwc", True, 0)])
+def test_the_resample_counter_reads_the_kernels_launches(resample_stood_in, empty_table, which,
+                                                         enhanced, launches):
+    call = resample_call(which, enhanced)
+    assert call.counts.get("pipeline.resample_launches", 0) == launches
+    assert call.counts.get("pipeline.enhance_launches", 0) == 0  # B2-B4 run their plain versions
+
+
+@pytest.mark.parametrize("enhanced", [False, True])
+def test_on_the_cpu_no_call_counts_a_resample_and_the_outputs_stay(monkeypatch, empty_table,
+                                                                   enhanced):
+    """The per-rig hall on the CPU: no ``pipeline.resample_launches``, and
+    the tick's outputs equal those with the kernel stood in for."""
+    corners, frames = rigs_and_frames(SEED)
+    pipe = MultiStreamPipeline(geometries(corners), n_streams=BOARDS, with_enhancer=enhanced,
+                               hough_backend="conv", device="cpu")
+    state = pipe.capture_reference(pipe.init_state(), frames(0))
+    tprof.clear()
+    _, plain = pipe.step(state, frames(1))
+    (call,) = tprof.recorded_calls()
+    assert "pipeline.resample_launches" not in call.counts
+    with monkeypatch.context() as m:
+        m.setattr(mr, "use_kernel", lambda frames: True)
+        m.setattr(mr, "resample_u8", mr.resample_boards_plain)
+        _, stood_in = pipe.step(state, frames(1))
+    for a, b in zip(outputs_to_numpy(plain).step, outputs_to_numpy(stood_in).step):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_the_hall_squares_are_one_resample_a_board(empty_table):
+    """The per-rig hall's squares, every board in one resample, equal each
+    board's own ``resample_gray_u8`` with its plan, bit for bit."""
+    corners, frames = rigs_and_frames(SEED)
+    pipe = MultiStreamPipeline(geometries(corners), n_streams=BOARDS, hough_backend="conv",
+                               device="cpu")
+    planar = torch.from_numpy(frames(1).copy()).movedim(-1, -3)
+    got, _ = pipe._squares(planar)
+    gray = planar_bgr2gray(planar)
+    padded = torch.cat([mr.resample_gray_u8(gray[i], *mr.build_plan(
+        *g.square_query_coords(), g.src_h, g.src_w, device="cpu"))
+        for i, g in enumerate(geometries(corners))])
+    want, _ = pipe.pipe.blur(padded)
+    assert torch.equal(got, want)

@@ -14,10 +14,12 @@ import torch
 from chessboard_vision_tpu_torch import geometry as geo
 from chessboard_vision_tpu_torch.kernels import bilateral as kb
 from chessboard_vision_tpu_torch.kernels import clahe as kc
+from chessboard_vision_tpu_torch.kernels import resample as kr
 from chessboard_vision_tpu_torch.kernels import score_matmul as sm
 from chessboard_vision_tpu_torch.models import pipeline as tp
 from chessboard_vision_tpu_torch.ops import enhance as tenh
 from chessboard_vision_tpu_torch.ops import hough_conv as thc
+from chessboard_vision_tpu_torch.ops import matmul_resample as tmr
 from chessboard_vision_tpu_torch.tools.synth import SynthCamera, bench_corners, initial_occupancy
 
 # bf16 products summed in f32 in another order: the tolerance of the JAX
@@ -575,3 +577,135 @@ def test_enhancement_kernels_batched_one_launch(cuda, n, shape):
     assert torch.equal(out, kc.clahe_apply_reference(lab, luts, th, tw, tiles))
     assert torch.equal(out, torch.stack([kc.clahe_apply(b, t, th, tw, tiles)
                                          for b, t in zip(lab, luts)]))
+
+
+# ---------------------------------------------------------------------------
+# The resample kernel (kernels/resample.cu)
+# ---------------------------------------------------------------------------
+
+
+def _rig_geometries(height, width, n, jitter, seed):
+    """n rigs around bench_corners' board, each corner moved by up to
+    ``jitter`` px, as the hall's configuration draws them."""
+    rng = np.random.default_rng(seed)
+    base = bench_corners(height, width)
+    return [geo.BoardGeometry.from_calibration(
+        np.rint(base + rng.uniform(-jitter, jitter, base.shape)).astype(np.int64),
+        display_size=(width, height)) for _ in range(n)]
+
+
+def _resample_case(case, device):
+    """(frames (n, C, Hf, Wf) u8 on ``device``, the plan with a board axis of
+    n, dims) of one of the resample's call sites on random u8 frames."""
+    if case == "hall_gray":  # the 1080p hall's 8 per-rig square plans
+        geos, coords, lead, channels = _rig_geometries(1080, 1920, 8, 40, 1), "squares", 8, 1
+    elif case == "hall_color":  # the enhanced hall's 8 tile plans, from HWC frames' planar view
+        geos, coords, lead, channels = _rig_geometries(1080, 1920, 8, 40, 2), "tiles", 8, 3
+    else:  # one 720p planar frame's square plan
+        geos, coords, lead, channels = _rig_geometries(720, 1280, 1, 0, 3), "squares", 1, 1
+    plans = []
+    for g in geos:
+        qx, qy = (g.board_tile_query_coords()[:2] if coords == "tiles"
+                  else g.square_query_coords())
+        plans.append(tmr.build_plan(qx, qy, g.src_h, g.src_w, device=device))
+    gen = torch.Generator(device=device).manual_seed(len(case))
+    h, w = geos[0].src_h, geos[0].src_w
+    if case == "hall_color":
+        hwc = torch.randint(0, 256, (lead, h, w, 3), dtype=torch.uint8, device=device,
+                            generator=gen)
+        frames = hwc.movedim(-1, -3)
+    else:
+        frames = torch.randint(0, 256, (lead, channels, h, w), dtype=torch.uint8,
+                               device=device, generator=gen)
+    plan = tmr.stack_plans([p for p, _ in plans]) if lead > 1 else plans[0][0]
+    return frames, plan, plans[0][1]
+
+
+def _plain_on(plan, device):
+    return tmr.MatmulResamplePlan(*(f.to(device) for f in plan))
+
+
+@pytest.mark.parametrize("case", ["hall_gray", "hall_color", "single_720p"])
+def test_resample_kernel_bit_equal_to_the_plain_ops(cuda, case):
+    """One launch for all boards and channels, bit-equal to the plain ops on
+    the card and on the CPU; two launches bit-equal."""
+    frames, plan, dims = _resample_case(case, cuda)
+    before = kr.resample_u8.launches
+    got = tmr.resample_boards_u8(frames, plan, dims)
+    again = tmr.resample_boards_u8(frames, plan, dims)
+    torch.cuda.synchronize()
+    assert kr.resample_u8.launches == before + 2
+    assert got.shape == frames.shape[:2] + (64, dims.q_rows, dims.q_cols)
+    assert torch.equal(got, again)
+    assert torch.equal(got, tmr.resample_boards_plain(frames, plan, dims))
+    on_cpu = tmr.resample_boards_plain(frames.cpu(), _plain_on(plan, "cpu"), dims)
+    assert torch.equal(got.cpu(), on_cpu)
+
+
+def test_resample_kernel_zero_samples_and_both_lerp_orders(cuda):
+    """Anchors that leave the frame give 0, and each lerp takes both of its
+    fused products, bit-equal to the plain ops: random sample coordinates
+    over and past a 120x200 frame, two boards with a channel each and one
+    board with 5."""
+    rng = np.random.default_rng(5)
+    h, w = 120, 200
+    plans = []
+    for _ in range(2):
+        qx = rng.uniform(-6, w + 6, (64, 9, 7)).astype(np.float32)
+        qy = rng.uniform(-6, h + 6, (64, 9, 7)).astype(np.float32)
+        plans.append(tmr.build_plan(qx, qy, h, w, device=cuda))
+    for plan, _ in plans:
+        assert plan.zero_mask.any() and not plan.zero_mask.all()
+        for off in (plan.ux_off, plan.uy_off):
+            assert (off == 0).any() and (off != 0).any()
+    dims = plans[0][1]
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    stacked = tmr.stack_plans([p for p, _ in plans])
+    frames = torch.randint(0, 256, (2, 1, h, w), dtype=torch.uint8, device=cuda, generator=gen)
+    got = tmr.resample_boards_u8(frames, stacked, dims)
+    assert torch.equal(got, tmr.resample_boards_plain(frames, stacked, dims))
+    assert (got[stacked.zero_mask] == 0).all()
+    five = torch.randint(0, 256, (1, 5, h, w), dtype=torch.uint8, device=cuda, generator=gen)
+    plan, dims = plans[1]
+    assert torch.equal(tmr.resample_boards_u8(five, plan, dims),
+                       tmr.resample_boards_plain(five, plan, dims))
+    assert torch.equal(tmr.resample_gray_u8(five[0], plan, dims),
+                       tmr.resample_boards_plain(five, plan, dims)[0])
+
+
+def test_resample_kernel_refuses_what_it_cannot_take(cuda):
+    """A bad dtype, device or shape raises before any launch."""
+    frames, plan, dims = _resample_case("single_720p", cuda)
+    before = kr.resample_u8.launches
+    bad = [
+        (frames.float(), plan),  # not u8
+        (frames.cpu(), plan),  # frames off the card
+        (frames[..., :-1], plan),  # not the plan's source size
+        (frames[0], plan),  # no board axis
+        (frames.expand(2, -1, -1, -1), plan),  # two boards, a plan of one
+        (frames, _plain_on(plan, "cpu")),  # the plan off the card
+        (frames, plan._replace(src_index=plan.src_index.long())),  # a plan field of another dtype
+        (torch.zeros(frames.shape[:-1] + (frames.shape[-1] + 8,), dtype=torch.uint8,
+                     device=cuda)[..., :-8], plan),  # rows that are not Wf pixels apart
+    ]
+    for f, p in bad:
+        with pytest.raises(ValueError):
+            kr.resample_u8(f, p, dims)
+    assert kr.resample_u8.launches == before
+
+
+def test_resample_kernel_capture_and_replay(cuda):
+    """One capture under torch.cuda.graph and a replay on new frames equal
+    the eager launch."""
+    frames, plan, dims = _resample_case("hall_gray", cuda)
+    static = frames.clone()
+    tmr.resample_boards_u8(static, plan, dims)  # loads the library outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tmr.resample_boards_u8(static, plan, dims)
+    static.copy_(torch.flip(frames, dims=(-1,)))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, tmr.resample_boards_u8(static, plan, dims))
+    assert torch.equal(out, tmr.resample_boards_plain(static, plan, dims))

@@ -158,7 +158,7 @@ def test_per_stream_geometry_dp_mesh_matches_jax():
     each slot resamples its stream with its rig's plan."""
     corners = [ff.FLEET_CORNERS + (SHIFT if s % 2 else 0) for s in range(8)]
     tm, _, _ = _mesh_vs_jax(33, 8, jax_make_mesh(8), make_mesh(8, devices=CPU8), geos=corners)
-    assert all(len(slot.plans) == 1 for slot in tm.slots)
+    assert all(slot.board_plan[0].src_index.shape[0] == 1 for slot in tm.slots)  # one rig a slot
 
 
 def test_enhanced_dp_mesh_matches_jax(monkeypatch):
